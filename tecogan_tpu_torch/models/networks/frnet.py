@@ -1,0 +1,188 @@
+"""FRNet — frame-recurrent generator (FNet + SRNet) and streaming inference.
+
+Port of ``tecogan_tpu/models/networks/frnet.py``'s inference half. Per
+chunk of frames, FNet runs batched over the chunk's (cur, prev) LR pairs,
+the LR flow is reflect-padded back to the LR size and upsampled to an HR
+flow, then a per-frame loop warps the previous HR frame
+(``ops/warp_cuda.py::warp_planes``, the CUDA kernel on a card) and
+reconstructs the current frame with SRNet. Outputs are quantised to uint8
+on the device.
+
+bf16 mode (``compute_dtype="bfloat16"``) casts weights and inputs to bf16;
+resampling matrices follow the activation dtype, so the HR flow is bf16.
+The warp keeps fp32 coordinates and taps, and quantisation is fp32.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.color import quantize_uint8
+from ...ops.warp_cuda import warp_planes
+from .fnet import FNet
+from .srnet import SRNet
+
+__all__ = ["FRNetConfig", "FRNet", "infer_sequence", "infer_sequence_batch"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class FRNetConfig:
+    in_nc: int = 3
+    out_nc: int = 3
+    nf: int = 64
+    nb: int = 10
+    scale: int = 4
+    degradation: str = "BD"
+    # inference precision: 'float32' | 'bfloat16'
+    compute_dtype: str = "float32"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+
+def _init_torch_default(module: nn.Module, generator: torch.Generator):
+    """torch's default conv init, U(+-1/sqrt(fan_in)) for weight and bias,
+    drawn from ``generator``. fan_in is weight.size(1) * kh * kw for Conv2d
+    and ConvTranspose2d alike (torch's own rule)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            bound = 1.0 / math.sqrt(w.size(1) * w.size(2) * w.size(3))
+            with torch.no_grad():
+                w.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+
+
+def _reflect_pad_flow(flow: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Reflect-pad an (n, 2, h8, w8) flow up to (n, 2, h, w): FNet's pools
+    floor sizes to multiples of 8 (`tecogan_nets.py:239-241`)."""
+    ph, pw = h - flow.shape[-2], w - flow.shape[-1]
+    if ph == 0 and pw == 0:
+        return flow
+    return F.pad(flow, (0, pw, 0, ph), mode="reflect")
+
+
+class FRNet(nn.Module):
+    """FNet + SRNet with the reference's state-dict names (``fnet.*``,
+    ``srnet.*``). Build with ``FRNet.random`` or ``FRNet.from_state_dict``,
+    which construct on the meta device and then fill the weights."""
+
+    def __init__(self, cfg: FRNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.fnet = FNet(cfg.in_nc)
+        self.srnet = SRNet(cfg.in_nc, cfg.out_nc, cfg.nf, cfg.nb, cfg.scale,
+                           cfg.degradation)
+
+    @classmethod
+    def random(cls, cfg: FRNetConfig, generator: torch.Generator,
+               device: torch.device | str = "cpu") -> "FRNet":
+        """Weights drawn from ``generator`` (a CPU generator) with torch's
+        default bounds, then moved to ``device``; fp32."""
+        with torch.device("meta"):
+            net = cls(cfg)
+        net = net.to_empty(device="cpu")
+        _init_torch_default(net, generator)
+        return net.to(device).eval()
+
+    @classmethod
+    def from_state_dict(cls, cfg: FRNetConfig, state_dict,
+                        device: torch.device | str = "cpu") -> "FRNet":
+        """Weights from a state dict in the reference's names (tensors or
+        numpy arrays); missing, extra or misshapen entries raise."""
+        with torch.device("meta"):
+            net = cls(cfg)
+        sd = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+              for k, v in state_dict.items()}
+        net.load_state_dict(sd, strict=True, assign=True)
+        return net.eval()
+
+    def hr_flow(self, lr_flow: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """LR flow (n, 2, h8, w8) -> HR flow (n, 2, s*h, s*w): reflect pad to
+        the LR size, upsample, scale the velocities."""
+        lr_flow = _reflect_pad_flow(lr_flow, h, w)
+        return self.cfg.scale * self.srnet.upsample(lr_flow)
+
+    def step(self, lr_curr: torch.Tensor, lr_prev: torch.Tensor,
+             hr_prev: torch.Tensor) -> torch.Tensor:
+        """One streaming step in NCHW: (n, c, h, w) x2 + (n, c, sh, sw) ->
+        (n, c, sh, sw) (reference single-frame path,
+        `tecogan_nets.py:227-252`)."""
+        h, w = lr_curr.shape[-2:]
+        flow = self.hr_flow(self.fnet(lr_curr, lr_prev), h, w)
+        warped = warp_planes(hr_prev, flow.permute(0, 2, 3, 1))
+        return self.srnet(lr_curr, warped)
+
+
+def _compute_module(net: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``net`` in ``dtype``: itself when it already is, else a cast copy
+    (the caller's module is never modified)."""
+    if next(net.parameters()).dtype == dtype:
+        return net
+    return copy.deepcopy(net).to(dtype)
+
+
+def infer_sequence_batch(net, lr_seqs: torch.Tensor, cfg: FRNetConfig,
+                         chunk: int = 16) -> torch.Tensor:
+    """SR a batch of LR sequences: (n, t, h, w, c) float -> uint8
+    (n, t, s*h, s*w, c), on the device ``net`` lives on.
+
+    ``net`` is an ``FRNet`` or a state dict in its names. Chunks are
+    balanced to the length (``ceil(t / n_chunks)`` frames each) and the
+    last is edge-padded by repeating the final frame; the padded outputs
+    are trimmed. The LR-prev and HR carries start at zeros; across chunks
+    the LR-prev carry is the chunk's last frame.
+    """
+    lr_seqs = torch.as_tensor(lr_seqs)
+    if not isinstance(net, nn.Module):
+        net = FRNet.from_state_dict(cfg, net, device=lr_seqs.device)
+    dt = cfg.dtype
+    net = _compute_module(net, dt)
+    device = next(net.parameters()).device
+    n, t, h, w, c = lr_seqs.shape
+    s = cfg.scale
+
+    with torch.inference_mode():
+        # (n, t, c, h, w) in the compute dtype
+        x = lr_seqs.to(device=device, dtype=dt).permute(0, 1, 4, 2, 3)
+        n_chunks = -(-t // chunk)
+        chunk = -(-t // n_chunks)
+        pad = n_chunks * chunk - t
+        if pad:
+            x = torch.cat([x, x[:, -1:].expand(n, pad, c, h, w)], dim=1)
+
+        lr_prev = torch.zeros((n, c, h, w), dtype=dt, device=device)
+        hr_prev = torch.zeros((n, cfg.out_nc, s * h, s * w), dtype=dt,
+                              device=device)
+        out = torch.empty((n, n_chunks * chunk, s * h, s * w, cfg.out_nc),
+                          dtype=torch.uint8, device=device)
+        for k in range(n_chunks):
+            cur = x[:, k * chunk:(k + 1) * chunk]
+            prevs = torch.cat([lr_prev[:, None], cur[:, :-1]], dim=1)
+            lr_flow = net.fnet(cur.reshape(n * chunk, c, h, w),
+                               prevs.reshape(n * chunk, c, h, w))
+            hr_flow = net.hr_flow(lr_flow, h, w).reshape(
+                n, chunk, 2, s * h, s * w)
+            for i in range(chunk):
+                warped = warp_planes(hr_prev,
+                                     hr_flow[:, i].permute(0, 2, 3, 1))
+                hr_prev = net.srnet(cur[:, i], warped)
+                out[:, k * chunk + i] = quantize_uint8(
+                    hr_prev).permute(0, 2, 3, 1)
+            lr_prev = cur[:, -1]
+    return out[:, :t]
+
+
+def infer_sequence(net, lr_seq: torch.Tensor, cfg: FRNetConfig,
+                   chunk: int = 16) -> torch.Tensor:
+    """SR one LR sequence: (t, h, w, c) -> uint8 (t, s*h, s*w, c)."""
+    return infer_sequence_batch(net, lr_seq[None], cfg, chunk)[0]
