@@ -22,64 +22,33 @@
 // itself is a large share. Fusing the space_to_depth of the output into
 // this kernel, or capturing the frame loop in a CUDA graph, is later work.
 //
-// Each weight product and sum uses explicit round-to-nearest intrinsics so
-// no multiply-add is contracted: the kernel then rounds exactly like the
-// plain PyTorch version (ops/warp_cuda.py::warp_planes_reference).
+// The arithmetic (warp_common.cuh) rounds exactly like the plain PyTorch
+// version (ops/warp_cuda.py::warp_planes_reference).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even
-}
+using namespace tecogan;
 
 template <typename TI, typename TF>
 __global__ void warp_planes_kernel(const TI* __restrict__ planes,
                                    const TF* __restrict__ flow,
                                    TI* __restrict__ out, int n, int c, int H,
-                                   int W, int64_t fs_n, int64_t fs_h,
-                                   int64_t fs_w, int64_t fs_k) {
-  const int64_t total = (int64_t)n * H * W;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int j = (int)(idx % W);
-  const int64_t r = idx / W;
-  const int i = (int)(r % H);
-  const int b = (int)(r / H);
-
-  const TF* f = flow + b * fs_n + i * fs_h + j * fs_w;
-  const float fx = load_f32(f);
-  const float fy = load_f32(f + fs_k);
-
-  const float syc = fminf(fmaxf(__fadd_rn((float)i, fy), 0.0f), (float)(H - 1));
-  const float sxc = fminf(fmaxf(__fadd_rn((float)j, fx), 0.0f), (float)(W - 1));
-  const float y0f = floorf(syc);
-  const float x0f = floorf(sxc);
-  const float wy = __fsub_rn(syc, y0f);
-  const float wx = __fsub_rn(sxc, x0f);
-  const float wy0 = __fsub_rn(1.0f, wy);
-  const float wx0 = __fsub_rn(1.0f, wx);
+                                   int W, Strides4 fs) {
+  int b, i, j;
+  if (!pixel_of(n, H, W, b, i, j)) return;
+  const Taps t = taps_at(flow, fs, b, i, j, H, W);
+  const float wy0 = __fsub_rn(1.0f, t.wy);
+  const float wx0 = __fsub_rn(1.0f, t.wx);
   const float w00 = __fmul_rn(wx0, wy0);
-  const float w01 = __fmul_rn(wx, wy0);
-  const float w10 = __fmul_rn(wx0, wy);
-  const float w11 = __fmul_rn(wx, wy);
-
-  const int y0 = (int)y0f;
-  const int x0 = (int)x0f;
-  const int y1 = min(y0 + 1, H - 1);
-  const int x1 = min(x0 + 1, W - 1);
-  const int64_t o00 = (int64_t)y0 * W + x0;
-  const int64_t o01 = (int64_t)y0 * W + x1;
-  const int64_t o10 = (int64_t)y1 * W + x0;
-  const int64_t o11 = (int64_t)y1 * W + x1;
+  const float w01 = __fmul_rn(t.wx, wy0);
+  const float w10 = __fmul_rn(wx0, t.wy);
+  const float w11 = __fmul_rn(t.wx, t.wy);
+  const int64_t o00 = (int64_t)t.y0 * W + t.x0;
+  const int64_t o01 = (int64_t)t.y0 * W + t.x1;
+  const int64_t o10 = (int64_t)t.y1 * W + t.x0;
+  const int64_t o11 = (int64_t)t.y1 * W + t.x1;
 
   const int64_t plane = (int64_t)H * W;
   const TI* src = planes + (int64_t)b * c * plane;
@@ -98,14 +67,11 @@ template <typename TI, typename TF>
 int launch(const void* planes, const void* flow, void* out, int n, int c,
            int H, int W, int64_t fs_n, int64_t fs_h, int64_t fs_w,
            int64_t fs_k, void* stream) {
-  const int64_t total = (int64_t)n * H * W;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  warp_planes_kernel<TI, TF><<<(unsigned int)blocks, threads, 0,
+  if ((int64_t)n * H * W == 0) return 0;
+  warp_planes_kernel<TI, TF><<<blocks_for(n, H, W), kThreads, 0,
                                (cudaStream_t)stream>>>(
-      (const TI*)planes, (const TF*)flow, (TI*)out, n, c, H, W, fs_n, fs_h,
-      fs_w, fs_k);
+      (const TI*)planes, (const TF*)flow, (TI*)out, n, c, H, W,
+      Strides4{fs_n, fs_h, fs_w, fs_k});
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The library lands in ``build/kernels/`` beside the package, named by a hash
-of the sources and flags, so a checkout builds it at first use and reuses
-it until a source changes. A missing ``nvcc`` or a failed build raises:
-nothing falls back to the plain PyTorch versions.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+library lands in ``build/kernels/`` beside the package, named by a hash of
+the sources, the headers and the flags, so a checkout builds it at first
+use and reuses it until a source changes. A missing ``nvcc`` or a failed
+build raises: nothing falls back to the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ __all__ = ["BuildError", "build", "load_library", "library_path"]
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class BuildError(RuntimeError):
@@ -42,7 +43,7 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtecogan_kernels_{h.hexdigest()[:16]}.so"
@@ -57,6 +58,28 @@ def _nvcc() -> str:
                      "CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]], logdir: str) -> str:
+    """Run the commands concurrently; raise BuildError if any fails.
+    Returns their output, in command order."""
+    procs = []
+    for k, cmd in enumerate(cmds):
+        log = open(os.path.join(logdir, f"cmd{k}.log"), "w+")
+        procs.append((cmd, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    out, failed = [], []
+    for cmd, log, proc in procs:
+        with log:
+            rc = proc.wait()
+            log.seek(0)
+            text = log.read()
+        out.append(text)
+        if rc != 0:
+            failed.append(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    if failed:
+        raise BuildError("\n".join(failed))
+    return "".join(out)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the kernels unless the current library exists.
 
@@ -69,22 +92,17 @@ def build() -> tuple[Path, float, str]:
         return path, 0.0, ""
     nvcc = _nvcc()
     path.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a unique name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise BuildError(f"nvcc failed ({proc.returncode}):\n"
-                             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+    # compile into a private directory, then rename the library into
+    # place: concurrent builders never load a half-written library
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(_sources(), objs)], tmp)
+        lib = os.path.join(tmp, path.name)
+        log += _run_all([[nvcc, "-shared", "-o", lib, *objs]], tmp)
+        os.replace(lib, path)
+    return path, time.perf_counter() - t0, log
 
 
 @functools.cache

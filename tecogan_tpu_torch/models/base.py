@@ -1,13 +1,26 @@
-"""Model wrapper base, inference half (port of
-``tecogan_tpu/models/base.py``): device selection, inference data staging
-and temporal front padding."""
+"""Model wrapper base (port of ``tecogan_tpu/models/base.py``): device
+selection, training and inference data staging, temporal front padding,
+the running log and checkpoints.
+
+Checkpoints: generator weights go to ``G_iter{N}.npz`` in the JAX
+package's layout; the full training state (weights, Adam state, step,
+running log) to ``state_iter{N}.pth`` with ``torch.save``, and
+``try_resume`` reloads the newest one with ``weights_only=True``.
+"""
 
 from __future__ import annotations
+
+import logging
+import os
+import os.path as osp
 
 import numpy as np
 import torch
 
 from ..ops.degrade import downsample_bd
+from ..utils import ckpt as ckpt_io
+
+_log = logging.getLogger(__name__)
 
 
 def select_device(opt) -> torch.device:
@@ -41,6 +54,23 @@ class BaseVSRModel:
         self.opt = opt
         self.scale = opt["scale"]
         self.device = select_device(opt) if device is None else device
+        self.is_train = opt.get("is_train", False)
+        self.log_decay = opt.get("logger", {}).get("decay", 0.99)
+        if self.is_train:
+            self.ckpt_dir = opt["train"]["ckpt_dir"]
+
+    def prepare_training_data(self, batch) -> dict:
+        """Host batch {'gt': (n, t, H, W, c)[, 'lr']}, uint8 as the loader
+        ships it (or float) -> device tensors. To a card the arrays go
+        from pinned memory without blocking the host; normalisation happens
+        on the device, inside the step."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
 
     def prepare_inference_data(self, data) -> torch.Tensor:
         """Sequence dict -> LR float32 (t, h, w, c) on the model's device.
@@ -79,3 +109,60 @@ class BaseVSRModel:
         else:
             raise ValueError(f"Unrecognized padding mode: {mode}")
         return torch.cat([pad, lr_data], dim=0), n_pad
+
+    # ------------------------------------------------------------------ logs
+    def get_running_log(self, state) -> dict:
+        """The EMA log as host floats (one device read per key)."""
+        return {k: float(v) for k, v in state["running_log"].items()}
+
+    # ----------------------------------------------------------- checkpoints
+    def save_pytree(self, tree, filename):
+        path = osp.join(self.ckpt_dir, filename)
+        ckpt_io.save_pytree(tree, path)
+        _log.info("Saved checkpoint: %s", path)
+
+    def save_training_state(self, state, current_iter):
+        """Full-state checkpoint: weights, optimizer, step, running log."""
+        path = osp.join(self.ckpt_dir, f"state_iter{current_iter}.pth")
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        torch.save({
+            "g": state["g"].state_dict(),
+            "opt_g": state["opt_g"].state_dict(),
+            "step": state["step"],
+            "running_log": dict(state["running_log"]),
+        }, tmp)
+        os.replace(tmp, path)
+        _log.info("Saved checkpoint: %s", path)
+
+    def try_resume(self, state):
+        """Resume from the newest ``state_iter{N}.pth`` in ckpt_dir, if any.
+        Returns (state, resumed). A checkpoint whose weights do not match
+        the configured net (other widths or depth) raises ValueError."""
+        path = ckpt_io.latest_training_state(self.ckpt_dir)
+        if path is None:
+            return state, False
+        # to the host first: the loads below place each tensor (Adam keeps
+        # its step counters on the host, so that a step reads no device
+        # value back)
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        net = state["g"]
+        live = net.state_dict()
+        if set(saved["g"]) != set(live):
+            raise ValueError(
+                f"checkpoint {path} does not match the configured model: "
+                f"keys {sorted(set(saved['g']) ^ set(live))} differ")
+        for k, v in live.items():
+            if tuple(saved["g"][k].shape) != tuple(v.shape):
+                raise ValueError(
+                    f"checkpoint {path} does not match the configured "
+                    f"model: {k} has shape {tuple(saved['g'][k].shape)}, "
+                    f"expected {tuple(v.shape)}")
+        net.load_state_dict(saved["g"])
+        state["opt_g"].load_state_dict(saved["opt_g"])
+        state["step"] = int(saved["step"])
+        state["running_log"] = {
+            k: saved["running_log"][k].to(self.device, torch.float32)
+            for k in state["running_log"]}
+        _log.info("Resumed training state from %s", path)
+        return state, True

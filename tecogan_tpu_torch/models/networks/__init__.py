@@ -2,14 +2,16 @@
 generator half)."""
 
 from .fnet import FNet
-from .frnet import FRNet, FRNetConfig, infer_sequence, infer_sequence_batch
+from .frnet import (FRNet, FRNetConfig, forward_sequence, infer_sequence,
+                    infer_sequence_batch)
 from .srnet import SRNet
 
 
 def define_generator(opt):
     """opt -> (FRNetConfig, build_fn); ``build_fn(generator, device)``
     draws an FRNet's weights from a ``torch.Generator``. Reads the same
-    YAML keys as the JAX package; generator name 'frnet' only."""
+    YAML keys as the JAX package (``remat`` for the training unroll,
+    ``compute_dtype`` for inference); generator name 'frnet' only."""
     g = opt["model"]["generator"]
     if g["name"].lower() != "frnet":
         raise ValueError(f"Unrecognized generator: {g['name']}")
@@ -20,6 +22,7 @@ def define_generator(opt):
         nb=g["nb"],
         scale=opt["scale"],
         degradation=opt["dataset"]["degradation"]["type"],
+        remat=g.get("remat", True),
         compute_dtype=g.get("compute_dtype", "float32"),
     )
     if cfg.compute_dtype not in ("float32", "bfloat16"):
@@ -36,6 +39,7 @@ __all__ = [
     "FRNetConfig",
     "SRNet",
     "define_generator",
+    "forward_sequence",
     "infer_sequence",
     "infer_sequence_batch",
 ]

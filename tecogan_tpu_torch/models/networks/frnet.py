@@ -1,6 +1,12 @@
-"""FRNet — frame-recurrent generator (FNet + SRNet) and streaming inference.
+"""FRNet — frame-recurrent generator (FNet + SRNet): the training unroll and
+streaming inference.
 
-Port of ``tecogan_tpu/models/networks/frnet.py``'s inference half. Per
+Port of ``tecogan_tpu/models/networks/frnet.py``. Training
+(``forward_sequence``): FNet runs once over the clip's t-1 (cur, prev)
+pairs, the flows are upsampled to HR, and a per-frame recurrence warps the
+previous HR frame with the differentiable warp (``ops/warp_vjp.py``: K2
+forward, K3/K4 backward) and reconstructs the frame with SRNet; frame 0
+warps a zero HR carry along a zero flow. Inference: per
 chunk of frames, FNet runs batched over the chunk's (cur, prev) LR pairs,
 the LR flow is reflect-padded back to the LR size and upsampled to an HR
 flow, then a per-frame loop warps the previous HR frame
@@ -17,18 +23,23 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.color import quantize_uint8
 from ...ops.warp_cuda import warp_planes
+from ...ops.warp_vjp import backward_warp_diff
 from .fnet import FNet
 from .srnet import SRNet
 
-__all__ = ["FRNetConfig", "FRNet", "infer_sequence", "infer_sequence_batch"]
+__all__ = ["FRNetConfig", "FRNet", "forward_sequence", "infer_sequence",
+           "infer_sequence_batch"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,6 +52,10 @@ class FRNetConfig:
     nb: int = 10
     scale: int = 4
     degradation: str = "BD"
+    # recompute each training frame's step in the backward pass
+    # (torch.utils.checkpoint) so BPTT keeps one frame's activations per
+    # frame instead of all of them
+    remat: bool = True
     # inference precision: 'float32' | 'bfloat16'
     compute_dtype: str = "float32"
 
@@ -98,10 +113,12 @@ class FRNet(nn.Module):
     def from_state_dict(cls, cfg: FRNetConfig, state_dict,
                         device: torch.device | str = "cpu") -> "FRNet":
         """Weights from a state dict in the reference's names (tensors or
-        numpy arrays); missing, extra or misshapen entries raise."""
+        numpy arrays), copied, so training the net leaves the caller's
+        arrays as they are; missing, extra or misshapen entries raise."""
         with torch.device("meta"):
             net = cls(cfg)
-        sd = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+        sd = {k: torch.as_tensor(v).to(device=device, dtype=torch.float32,
+                                       copy=True)
               for k, v in state_dict.items()}
         net.load_state_dict(sd, strict=True, assign=True)
         return net.eval()
@@ -121,6 +138,78 @@ class FRNet(nn.Module):
         flow = self.hr_flow(self.fnet(lr_curr, lr_prev), h, w)
         warped = warp_planes(hr_prev, flow.permute(0, 2, 3, 1))
         return self.srnet(lr_curr, warped)
+
+
+def _sub_params(params: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
+
+
+def _sr_step(srnet: SRNet, srnet_params: dict, lr_curr: torch.Tensor,
+             hr_prev: torch.Tensor, hr_flow: torch.Tensor) -> torch.Tensor:
+    """One training recurrence step in NCHW, the reference form: warp the
+    previous HR frame along the (n, H, W, 2) flow, then SRNet on
+    cat(lr, space_to_depth(warped)) with ``srnet_params``."""
+    hr_warp = backward_warp_diff(hr_prev, hr_flow)
+    return functional_call(srnet, srnet_params, (lr_curr, hr_warp))
+
+
+def forward_sequence(net: FRNet, lr_data: torch.Tensor, cfg: FRNetConfig,
+                     params: dict | None = None) -> dict:
+    """Run the full training unroll.
+
+    Args:
+        net: the FRNet whose modules run.
+        lr_data: (n, t, h, w, c) LR clip, h and w multiples of 8.
+        params: tensors in ``net.state_dict()``'s names to run with in
+            place of the module's own (e.g. bf16 copies of its fp32
+            parameters); gradients flow back through them.
+
+    Returns (the JAX package's layouts, as views of NCHW tensors):
+        hr_data: (n, t, s*h, s*w, c)
+        hr_flow: (n, t-1, s*h, s*w, 2)
+        lr_prev/lr_curr: (n*(t-1), h, w, c)
+        lr_flow: (n*(t-1), h, w, 2)
+    """
+    n, t, h, w, c = lr_data.shape
+    s = cfg.scale
+    if params is None:
+        params = dict(net.named_parameters())
+    x = lr_data.permute(0, 1, 4, 2, 3).contiguous()  # (n, t, c, h, w)
+
+    lr_prev = x[:, :-1].reshape(n * (t - 1), c, h, w)
+    lr_curr = x[:, 1:].reshape(n * (t - 1), c, h, w)
+    lr_flow = functional_call(net.fnet, _sub_params(params, "fnet."),
+                              (lr_curr, lr_prev))
+    hr_flow = net.hr_flow(lr_flow, h, w).reshape(n, t - 1, 2, s * h, s * w)
+
+    # frame 0 warps a zero HR carry along a zero flow, the reference's
+    # zero-state first step; both are constants, so its warp has no
+    # backward
+    flows = [torch.zeros((n, s * h, s * w, 2), dtype=hr_flow.dtype,
+                         device=hr_flow.device)]
+    flows += [f.permute(0, 2, 3, 1) for f in hr_flow.unbind(1)]
+    step = functools.partial(_sr_step, net.srnet,
+                             _sub_params(params, "srnet."))
+    hr_prev = torch.zeros((n, cfg.out_nc, s * h, s * w), dtype=x.dtype,
+                          device=x.device)
+    hrs = []
+    for i in range(t):
+        if cfg.remat:
+            hr_prev = checkpoint(step, x[:, i], hr_prev, flows[i],
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            hr_prev = step(x[:, i], hr_prev, flows[i])
+        hrs.append(hr_prev)
+
+    return {
+        "hr_data": torch.stack(hrs, dim=1).permute(0, 1, 3, 4, 2),
+        "hr_flow": hr_flow.permute(0, 1, 3, 4, 2),
+        "lr_prev": lr_prev.permute(0, 2, 3, 1),
+        "lr_curr": lr_curr.permute(0, 2, 3, 1),
+        "lr_flow": lr_flow.permute(0, 2, 3, 1),
+    }
 
 
 def _compute_module(net: nn.Module, dtype: torch.dtype) -> nn.Module:

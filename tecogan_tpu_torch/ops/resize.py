@@ -226,9 +226,12 @@ def resize_matrix(mode: str, in_size: int, **kw) -> np.ndarray:
 def _device_matrix(mode: str, in_size: int, dtype: torch.dtype,
                    device: torch.device, **kw) -> torch.Tensor:
     """``resize_matrix`` as a tensor on ``device`` in ``dtype``, cached so
-    the streaming loop pays no host-to-device copy per frame."""
-    m = torch.from_numpy(resize_matrix(mode, in_size, **kw))
-    return m.to(device=device, dtype=dtype)
+    the streaming loop pays no host-to-device copy per frame. Made outside
+    inference mode even when first asked for inside it: a cached inference
+    tensor could not take part in a later training step's autograd."""
+    with torch.inference_mode(False):
+        m = torch.from_numpy(resize_matrix(mode, in_size, **kw))
+        return m.to(device=device, dtype=dtype)
 
 
 def apply_separable(x: torch.Tensor, mh: torch.Tensor,

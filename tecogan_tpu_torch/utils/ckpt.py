@@ -1,17 +1,41 @@
-"""Checkpoint reading, numpy only (the loading half of
-``tecogan_tpu/utils/ckpt.py``).
+"""Checkpoint files, numpy only (port of ``tecogan_tpu/utils/ckpt.py``).
 
-Native checkpoints are flat ``.npz`` files whose keys are '/'-joined
-pytree paths; reference checkpoints are ``.pth`` state dicts.
+Native generator checkpoints are flat ``.npz`` files whose keys are
+'/'-joined pytree paths, in the JAX package's layout; reference
+checkpoints are ``.pth`` state dicts. The port's full training state
+(weights, Adam state, step, running log) is ``state_iter{N}.pth``
+(``models/base.py``).
 """
 
 from __future__ import annotations
 
+import os
+import os.path as osp
+
 import numpy as np
 
-__all__ = ["load_pytree", "load_generator_params"]
+__all__ = ["save_pytree", "load_pytree", "load_generator_params",
+           "latest_training_state"]
 
 _SEP = "/"
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if not isinstance(k, str) or _SEP in k or k.startswith("#"):
+                # such keys would not round-trip through the path syntax
+                raise ValueError(
+                    f"cannot checkpoint dict key {k!r} at {prefix!r}: "
+                    f"keys must be '{_SEP}'-free, non-'#' strings")
+            out.update(_flatten(v, f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}#{i}{_SEP}"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
 
 
 def _unflatten(flat):
@@ -34,6 +58,15 @@ def _unflatten(flat):
     return fix(tree)
 
 
+def save_pytree(tree, path):
+    """A nested dict/tuple of numpy arrays -> ``.npz``, written to a
+    pid-unique temporary name and renamed into place."""
+    os.makedirs(osp.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}.npz"
+    np.savez(tmp, **_flatten(tree))
+    os.replace(tmp, path)
+
+
 def load_pytree(path):
     """A ``.npz`` checkpoint -> nested dict (tuples for '#i' keys)."""
     with np.load(path) as z:
@@ -49,3 +82,19 @@ def load_generator_params(path, nb: int = 10, scale: int = 4) -> dict:
     if str(path).endswith(".pth"):
         return convert.load_state_dict(path)
     return convert.state_dict_from_jax(load_pytree(path), nb, scale)
+
+
+def latest_training_state(ckpt_dir):
+    """The most recent ``state_iter{N}.pth`` in ckpt_dir, or None."""
+    if not osp.isdir(ckpt_dir):
+        return None
+    cands = []
+    for f in os.listdir(ckpt_dir):
+        if f.startswith("state_iter") and f.endswith(".pth"):
+            try:
+                cands.append((int(f[len("state_iter"):-len(".pth")]), f))
+            except ValueError:
+                pass
+    if not cands:
+        return None
+    return osp.join(ckpt_dir, max(cands)[1])

@@ -151,13 +151,17 @@ def test_vsr_model_requires_cuda_or_explicit_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VSRModel(opt)
+    # training is ported, and likewise never falls back to the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VSRModel({**opt, "is_train": True})
     with pytest.raises(NotImplementedError):
-        VSRModel({**_test_opt(None), "is_train": True})
+        VSRModel({**_test_opt(None), "test": {"spatial_partition": True}})
 
 
 def test_port_imports_without_jax():
     """Every tecogan_tpu_torch module imports with jax, the JAX package,
-    cv2 and yaml blocked; a CPU infer_sequence launches no kernel."""
+    cv2 and yaml blocked; a CPU infer_sequence and a CPU training step
+    launch no kernel."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "tecogan_tpu", "cv2", "yaml"):
@@ -176,9 +180,24 @@ def test_port_imports_without_jax():
         out = infer_sequence(net, torch.rand(2, 16, 16, 3), cfg, chunk=2)
         assert out.shape == (2, 64, 64, 3) and out.dtype == torch.uint8
         assert warp_planes.launches == 0, warp_planes.launches
+        from tecogan_tpu_torch.models import schedules, steps
+        from tecogan_tpu_torch.ops.warp_cuda import warp_rgb
+        from tecogan_tpu_torch.ops.warp_vjp import warp_dflow, warp_dimage
+        cb = {"type": "CB"}
+        tcfg = steps.TrainConfig(scale=4, degradation="BD", sigma=1.5,
+                                 pixel_crit=cb, warping_crit=cb,
+                                 mixed_precision=True)
+        opt, sched = schedules.make_adam({"lr": 1e-4}, net.parameters())
+        state = steps.frvsr_init_state(net, opt)
+        gt = torch.randint(0, 256, (1, 2, 40, 40, 3), dtype=torch.uint8)
+        state, logs = steps.frvsr_train_step(state, {"gt": gt}, cfg_g=cfg,
+                                             tcfg=tcfg, sched_g=sched)
+        assert state["step"] == 1 and set(logs) == {"l_pix_G", "l_warp_G"}
+        assert (warp_rgb.launches, warp_dimage.launches,
+                warp_dflow.launches) == (0, 0, 0)
         print(len(mods), "modules")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 12
+    assert int(res.stdout.split()[0]) >= 18
