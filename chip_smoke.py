@@ -9,24 +9,38 @@ Phases, each fatal on failure (nonzero exit, no result line):
    build/kernels/;
 3. K1 (the inference warp kernel) against its plain PyTorch version on the
    card, at the main path's shapes, the TPU kernel test's shapes and 1080p;
+   K1's band mode at the row-folded geometries of 4 streams of 134x320 at
+   4x and 3 streams at 2x; K5 (the phase-plane warp) at the packed16
+   path's shape, the TPU kernel test's shapes and its extreme flows;
 4. the inference path: a VSRModel at the flagship width (nf=64, nb=10, 4x,
    BD, bf16) serves three requests, and K1 must have been launched once
-   per warped frame; then the FPS at bench.py's protocol and a
-   torch.profiler breakdown of one such run;
-5. inference on the card against the CPU plain path, same weights and
-   inputs;
-6. K2, K3 and K4 (the training warp and its two adjoints) against their
+   per warped frame; then a torch.profiler breakdown of one run at
+   bench.py's protocol;
+5. the packed16 path at the same width through infer_sequence_batch: K5
+   once per warped frame, output against the default path's, the FPS of
+   both at bench.py's protocol, in turns, and a profile;
+6. the fold_streams path, 4 streams of 134x320: band-mode K1 once per
+   frame, each stream against the unfolded batched path, the aggregate
+   FPS of both, in turns, and a profile;
+7. inference on the card against the CPU plain path, same weights and
+   inputs, default and packed16;
+8. K2, K3 and K4 (the training warp and its two adjoints) against their
    plain versions at the training shapes and the TPU kernel test's shapes,
    image and flow in f32 and bf16, NCHW and channels_last, with their
    times;
-7. the training path: a VSRModel built like the Vimeo FRVSR train.yml
+9. the training path: a VSRModel built like the Vimeo FRVSR train.yml
    (nf=64, nb=10, 4x BD, batch 2 x 10 frames of 136^2 uint8 GT, bf16 mixed
    precision, remat) takes five steps; the K2/K3/K4 launch counts must be
    exactly what the step's structure gives; ms/step, a profile of one step,
    then save and resume into a fresh model;
-8. one training step on the card against the CPU, fp32 and bf16.
+10. one training step on the card against the CPU, fp32 and bf16.
 
-The second-to-last line lists the kernels as JSON; the last line is
+Every kernel is timed beside its plain version, its device time (from
+torch.profiler), one PyTorch library call that computes the same function
+(F.grid_sample or its backward, a yardstick the port never calls) and its
+bound: the larger of its bytes (each input read once, each output written
+once) over HBM bandwidth and its fp32 operations over the fp32 peak. The
+second-to-last line lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. Imports no JAX.
 """
 
@@ -51,6 +65,30 @@ K1_BF16_ULPS = 1
 # card vs CPU plain path bands (tests/test_golden.py's JAX fast-path bands)
 F32_MAX_DIFF, F32_PSNR = 2, 54.0
 BF16_MAX_DIFF, BF16_PSNR = 4, 48.0
+# K5 and its plain version do the same fp32 operations in the same order:
+# f32 output must be bit-identical, bf16 output (one fp32 value rounded)
+# at most 1 bf16 ulp away
+K5_BF16_ULPS = 1
+# K1's band mode: (streams, scale, LR rows, LR columns) of the fold path's
+# geometry and of a 2x one
+BAND_GEOMETRIES = ((4, 4, 134, 320), (3, 2, 134, 320))
+FOLD_STREAMS = 4
+# card bf16 packed16 against the card bf16 default path (the JAX package's
+# band, tests/test_warp_pallas.py:121-122): the coordinates are f32 there
+# and bf16 here; folded against unfolded, per stream
+# (tests/test_fast_path.py:200-203)
+P16_MAX_DIFF, P16_FRAC = 1, 0.02
+FOLD_MAX_DIFF, FOLD_FRAC = 1, 1e-3
+# published peaks of the H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bandwidth, and the fp32 rate outside the tensor cores, where the warps
+# compute
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# fp32 operations of each kernel per output pixel (coordinates, clamps,
+# floors, weights) and per output pixel and channel (taps), counted from
+# its source
+KERNEL_OPS = {"K1": (16, 7), "K2": (16, 7), "K3": (12, 10), "K4": (16, 16),
+              "K5": (18, 7)}
 
 
 def _require(cond, msg):
@@ -131,10 +169,84 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def phase_k1(card):
-    """K1 against warp_planes_reference on the card. Returns (max abs err,
-    {dtype: (kernel ms, plain ms)} at the main path's shape)."""
+def _device_ms(fn, iters=20):
+    """Device time per call of ``fn``: every kernel it launches, summed by
+    torch.profiler over ``iters`` calls. None if the profiler records no
+    device time."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3 if us else None
+
+
+def _bound(kernel, inputs, outputs, pixels, channels):
+    """The least time (ms) the card could take for a kernel's work, and
+    what sets it: the bytes of ``inputs`` read once and ``outputs`` written
+    once over HBM bandwidth, or its fp32 operations over the fp32 peak,
+    whichever is larger."""
+    per_pixel, per_tap = KERNEL_OPS[kernel]
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    ops = pixels * (per_pixel + channels * per_tap)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _grid(flow, dtype):
+    """F.grid_sample's grid (align_corners=True) for an (n, H, W, 2) flow:
+    the warp's sample points, normalised."""
+    import torch
+
+    n, h, w, _ = flow.shape
+    ii = torch.arange(h, dtype=torch.float32, device=flow.device)[:, None]
+    jj = torch.arange(w, dtype=torch.float32, device=flow.device)[None, :]
+    f = flow.float()
+    return torch.stack([(jj + f[..., 0]) * (2.0 / (w - 1)) - 1.0,
+                        (ii + f[..., 1]) * (2.0 / (h - 1)) - 1.0],
+                       dim=-1).to(dtype)
+
+
+def _time_kernel(label, card, kern, plain, library, bound):
+    """Time a kernel's wrapper, its plain version and its library yardstick
+    in turns (CUDA events, after a warm-up), and its device time."""
+    for _ in range(10):
+        kern()
+        plain()
+        library()
+    k, p, lib = [], [], []
+    for _ in range(2):  # in turns: kernel, plain, library, twice
+        k.append(_cuda_ms(kern, 200))
+        p.append(_cuda_ms(plain, 50))
+        lib.append(_cuda_ms(library, 200))
+    dev, lib_dev = _device_ms(kern), _device_ms(library)
+    t = {"ms": min(k), "plain_ms": min(p), "library_ms": min(lib),
+         "device_ms": dev, "library_device_ms": lib_dev,
+         "bound_ms": bound[0], "bound_by": bound[1]}
+
+    def us(ms):
+        return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+    print(f"{label} (CUDA events, us/call): kernel {t['ms'] * 1e3:.2f} "
+          f"[device {us(dev)}], plain {t['plain_ms'] * 1e3:.2f}, library "
+          f"{t['library_ms'] * 1e3:.2f} [device {us(lib_dev)}]; bound "
+          f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) on {card}")
+    return t
+
+
+def phase_k1(card):
+    """K1 against warp_planes_reference on the card. Returns K1's numbers
+    at the main path's shape."""
+    import torch
+    import torch.nn.functional as F
 
     from tecogan_tpu_torch.ops.warp_cuda import (warp_planes,
                                                  warp_planes_reference)
@@ -182,24 +294,211 @@ def phase_k1(card):
               f"{'ok' if ok else 'MISMATCH'} {detail}")
         _require(ok, f"K1 disagrees with its plain version at {shape} {pd}")
 
-    timings = {}
+    # the main path's call: a bf16 HR frame and the (n, H, W, 2) view of
+    # its bf16 NCHW HR flow; the library call is grid_sample with border
+    # padding, whose normalised coordinates round differently
     shape = (1, 3, 536, 1280)
-    for pd in dts:
-        planes = torch.randn(shape, generator=gen, device=dev).to(dts[pd])
-        flow = (torch.randn((1, 2, 536, 1280), generator=gen, device=dev)
-                * 6.0).to(dts[pd]).permute(0, 2, 3, 1)
-        for _ in range(10):
-            warp_planes(planes, flow)
-            warp_planes_reference(planes, flow)
-        k, p = [], []
-        for _ in range(2):  # alternate: kernel, plain, kernel, plain
-            k.append(_cuda_ms(lambda: warp_planes(planes, flow), 200))
-            p.append(_cuda_ms(lambda: warp_planes_reference(planes, flow), 50))
-        timings[pd] = (min(k), min(p))
-        print(f"K1 time {shape} {pd} planes+flow (CUDA events): kernel "
-              f"{min(k) * 1e3:.2f} us/call, plain {min(p) * 1e3:.2f} us/call "
-              f"on {card}")
-    return max_err, timings
+    planes = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    flow = (torch.randn((1, 2, 536, 1280), generator=gen, device=dev)
+            * 6.0).bfloat16().permute(0, 2, 3, 1)
+    grid = _grid(flow, planes.dtype)
+    out = warp_planes(planes, flow)
+    t = _time_kernel(
+        f"K1 time {shape} bf16 planes+flow", card,
+        lambda: warp_planes(planes, flow),
+        lambda: warp_planes_reference(planes, flow),
+        lambda: F.grid_sample(planes, grid, mode="bilinear",
+                              padding_mode="border", align_corners=True),
+        _bound("K1", (planes, flow), (out,), out[:, 0].numel(), 3))
+    t["max_abs_err"] = max_err
+    return t
+
+
+def phase_k1_band(card):
+    """K1's band mode against warp_planes_reference(band=...) on the card,
+    at the fold path's geometries. Returns K1 band's numbers at the 4-stream
+    geometry."""
+    import torch
+    import torch.nn.functional as F
+
+    from tecogan_tpu_torch.models.networks.frnet import _fold_geometry
+    from tecogan_tpu_torch.ops.warp_cuda import (warp_planes,
+                                                 warp_planes_reference)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    max_err, n_cases = 0.0, 0
+    for streams, s, h, w in BAND_GEOMETRIES:
+        _, _, band = _fold_geometry(s, h)
+        hh, ww, valid = streams * band, s * w, s * h
+        for pd in dts:
+            for fd in dts:
+                for layout in ("nhwc", "nchw"):
+                    for sigma in (6.0, 30.0, 300.0):
+                        planes = torch.randn((1, 3, hh, ww), generator=gen,
+                                             device=dev).to(dts[pd])
+                        flow = (torch.randn((1, 2, hh, ww), generator=gen,
+                                            device=dev) * sigma).to(dts[fd])
+                        flow = flow.permute(0, 2, 3, 1)
+                        if layout == "nhwc":
+                            flow = flow.contiguous()
+                        torch.cuda.synchronize()
+                        got = warp_planes(planes, flow, band, valid)
+                        torch.cuda.synchronize()
+                        ref = warp_planes_reference(planes, flow, band, valid)
+                        err = float((got.float() - ref.float()).abs().max())
+                        max_err = max(max_err, err)
+                        ok = (torch.allclose(got, ref, rtol=K1_F32_TOL,
+                                             atol=K1_F32_TOL) if pd == "f32"
+                              else _bf16_ulps(got, ref) <= K1_BF16_ULPS)
+                        _require(ok and got.dtype == planes.dtype,
+                                 f"K1 band mode disagrees with its plain "
+                                 f"version: {streams} streams {s}x {h}x{w} "
+                                 f"planes={pd} flow={fd}/{layout} "
+                                 f"sigma={sigma} max_abs_err={err:.3g}")
+                        n_cases += 1
+    print(f"K1 band mode against its plain version: {n_cases} cases ok "
+          f"(geometries {BAND_GEOMETRIES}, planes and flow f32/bf16, flow "
+          f"NHWC and an NCHW view, sigma 6/30/300); max abs err "
+          f"{max_err:.3g}")
+
+    # the fold path's call: 4 folded streams, bf16 planes and the
+    # (n, H, W, 2) view of a smooth bf16 NCHW flow; the library call is
+    # grid_sample on each stream's valid rows alone (the kernel also writes
+    # the guard rows, which the path zeroes)
+    n, s, h, w = BAND_GEOMETRIES[0]
+    _, _, band = _fold_geometry(s, h)
+    hh, ww, valid = n * band, s * w, s * h
+    planes = torch.randn((1, 3, hh, ww), generator=gen,
+                         device=dev).bfloat16()
+    flow = _smooth_flow(gen, dev, 1, hh, ww, 6.0).bfloat16().permute(
+        0, 2, 3, 1)
+    x_lib = planes.reshape(3, n, band, ww)[:, :, :valid].transpose(0, 1)
+    x_lib = x_lib.contiguous()
+    grid = _grid(flow.reshape(n, band, ww, 2)[:, :valid], planes.dtype)
+    out = warp_planes(planes, flow, band, valid)
+    t = _time_kernel(
+        f"K1 band time {tuple(planes.shape)} band={band} valid={valid} bf16 "
+        f"planes+flow", card,
+        lambda: warp_planes(planes, flow, band, valid),
+        lambda: warp_planes_reference(planes, flow, band, valid),
+        lambda: F.grid_sample(x_lib, grid, mode="bilinear",
+                              padding_mode="border", align_corners=True),
+        _bound("K1", (planes, flow), (out,), out[:, 0].numel(), 3))
+    t["max_abs_err"] = max_err
+    return t
+
+
+def _smooth_flow(gen, dev, n, hh, ww, sigma):
+    """A smooth (n, 2, H, W) f32 flow: Gaussian noise times sigma at 1/16
+    of the size, upsampled bilinearly, so neighbouring pixels move alike
+    as FNet's upsampled flows do."""
+    import torch
+    import torch.nn.functional as F
+
+    low = torch.randn((n, 2, max(hh // 16, 2), max(ww // 16, 2)),
+                      generator=gen, device=dev) * sigma
+    return F.interpolate(low, size=(hh, ww), mode="bilinear",
+                         align_corners=False)
+
+
+def _phase_coords(flow, s):
+    """An (n, 2, H, W) HR flow -> clamped absolute per-phase HR coordinates
+    sy, sx (n, s*s, H/s, W/s), f32 (tests/test_warp_pallas.py's
+    construction)."""
+    import torch
+
+    n, _, hh, ww = flow.shape
+    h, w = hh // s, ww // s
+    f = flow.float().reshape(n, 2, h, s, w, s).permute(0, 1, 3, 5, 2, 4)
+    f = f.reshape(n, 2, s * s, h, w)
+    q = torch.arange(s * s, device=flow.device)
+    py = (q // s).float()[:, None, None]
+    px = (q % s).float()[:, None, None]
+    ii = (s * torch.arange(h, device=flow.device)).float()[:, None]
+    jj = (s * torch.arange(w, device=flow.device)).float()[None, :]
+    return (torch.clamp(ii + py + f[:, 1], 0.0, hh - 1.0).contiguous(),
+            torch.clamp(jj + px + f[:, 0], 0.0, ww - 1.0).contiguous())
+
+
+# K5's cases as (n, s, h, w, flow): the packed16 path's frame, the TPU
+# kernel test's two shapes, and its extreme flow (sigma 150 clipped to
+# +-170 HR pixels, near the kernel's halo bound)
+K5_CASES = ((1, 4, 134, 320, "smooth"), (1, 4, 32, 128, "smooth"),
+            (1, 2, 24, 256, "smooth"), (1, 4, 16, 128, "extreme"))
+
+
+def phase_k5(card):
+    """K5 against warp_phases_reference on the card. Returns K5's numbers
+    at the packed16 path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from tecogan_tpu_torch.ops.warp_phases import (phase_planes, warp_phases,
+                                                   warp_phases_reference)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    max_err, n_cases = 0.0, 0
+    for n, s, h, w, kind in K5_CASES:
+        hh, ww = s * h, s * w
+        for sigma in ((6.0, 30.0, 300.0) if kind == "smooth" else (150.0,)):
+            if kind == "smooth":
+                flow = _smooth_flow(gen, dev, n, hh, ww, sigma)
+            else:
+                flow = torch.clamp(torch.randn((n, 2, hh, ww), generator=gen,
+                                               device=dev) * sigma,
+                                   -170.0, 170.0)
+            sy, sx = _phase_coords(flow, s)
+            for pd in dts:
+                hr = torch.randn((n, 3, hh, ww), generator=gen,
+                                 device=dev).to(dts[pd])
+                view = phase_planes(hr, s)  # the path's carry, no copy
+                for planes in (view, view.contiguous().flatten(1, 2)):
+                    torch.cuda.synchronize()
+                    got = warp_phases(planes, sy, sx, s)
+                    torch.cuda.synchronize()
+                    ref = warp_phases_reference(planes, sy, sx, s)
+                    _require(got.dtype == hr.dtype
+                             and got.shape == (n, 3, s * s, h, w),
+                             f"K5 output {got.dtype} {tuple(got.shape)}")
+                    err = float((got.float() - ref.float()).abs().max())
+                    max_err = max(max_err, err)
+                    ok = (torch.equal(got, ref) if pd == "f32"
+                          else _bf16_ulps(got, ref) <= K5_BF16_ULPS)
+                    _require(ok, f"K5 disagrees with its plain version: "
+                             f"{(n, s, h, w)} {kind} sigma={sigma} "
+                             f"planes={pd}/{tuple(planes.stride())} "
+                             f"max_abs_err={err:.3g}")
+                    n_cases += 1
+    print(f"K5 against its plain version: {n_cases} cases ok ({K5_CASES}, "
+          f"sigma 6/30/300 smooth, planes f32 (bit-exact) and bf16 (<= "
+          f"{K5_BF16_ULPS} ulp), the HR frame's phase-plane view and a "
+          f"contiguous (n, s*s, c, h, w) copy); max abs err {max_err:.3g}")
+
+    # the packed16 path's call: the bf16 HR frame's phase-plane view and
+    # f32 coordinates; the library call is grid_sample on the HR frame with
+    # the grid in phase order, zero padding as K5's halo
+    n, s, h, w, _ = K5_CASES[0]
+    hh, ww = s * h, s * w
+    sy, sx = _phase_coords(_smooth_flow(gen, dev, n, hh, ww, 6.0), s)
+    hr = torch.randn((n, 3, hh, ww), generator=gen, device=dev).bfloat16()
+    view = phase_planes(hr, s)
+    grid = torch.stack([sx * (2.0 / (ww - 1)) - 1.0,
+                        sy * (2.0 / (hh - 1)) - 1.0], dim=-1)
+    grid = grid.reshape(n, s * s * h, w, 2).bfloat16()
+    out = warp_phases(view, sy, sx, s)
+    t = _time_kernel(
+        f"K5 time {(n, s * s, 3, h, w)} bf16 planes, f32 coordinates", card,
+        lambda: warp_phases(view, sy, sx, s),
+        lambda: warp_phases_reference(view, sy, sx, s),
+        lambda: F.grid_sample(hr, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=True),
+        _bound("K5", (hr, sy, sx), (out,), sy.numel(), 3))
+    t["max_abs_err"] = max_err
+    return t
 
 
 # K2 is held to K1's tolerances (same arithmetic, same rounding). K4 sums
@@ -233,9 +532,9 @@ def _vjp_flow(gen, dev, n, h, w, sigma):
 
 def phase_k234(card):
     """K2, K3 and K4 against their plain versions on the card. Returns
-    {kernel: (max abs err, kernel ms, plain ms)}, the times at the HR
-    training warp in bf16."""
+    {kernel: its numbers}, the times at the HR training warp in bf16."""
     import torch
+    import torch.nn.functional as F
 
     from tecogan_tpu_torch.ops.warp_cuda import warp_planes_reference, warp_rgb
     from tecogan_tpu_torch.ops.warp_vjp import (warp_dflow,
@@ -320,6 +619,9 @@ def phase_k234(card):
     print(f"K3 run-to-run max difference over two launches (fp32 atomics): "
           f"{k3_spread:.3g}")
 
+    # the library calls: grid_sample with border padding for K2, and its
+    # autograd backward, which gives the image and the grid gradients in
+    # one call, for K3 and K4 together
     out = {}
     for shape in TRAIN_WARP_SHAPES:
         n, c, h, w = shape
@@ -327,27 +629,35 @@ def phase_k234(card):
         g = torch.randn(shape, generator=gen, device=dev).bfloat16()
         flow = (torch.randn((n, h, w, 2), generator=gen, device=dev)
                 * 6.0).bfloat16()
-        pairs = {
+        grid = _grid(flow, x.dtype)
+        xr = x.detach().requires_grad_()
+        gr = grid.detach().requires_grad_()
+        y = F.grid_sample(xr, gr, mode="bilinear", padding_mode="border",
+                          align_corners=True)
+
+        def lib_vjp():
+            return torch.autograd.grad(y, (xr, gr), g, retain_graph=True)
+
+        pixels = n * h * w
+        cases = {
             "K2": (lambda: warp_rgb(x, flow),
-                   lambda: warp_planes_reference(x, flow)),
+                   lambda: warp_planes_reference(x, flow),
+                   lambda: F.grid_sample(x, grid, mode="bilinear",
+                                         padding_mode="border",
+                                         align_corners=True),
+                   _bound("K2", (x, flow), (x,), pixels, c)),
             "K3": (lambda: warp_dimage(g, flow, torch.bfloat16),
-                   lambda: warp_dimage_reference(g, flow, torch.bfloat16)),
+                   lambda: warp_dimage_reference(g, flow, torch.bfloat16),
+                   lib_vjp, _bound("K3", (g, flow), (x,), pixels, c)),
             "K4": (lambda: warp_dflow(g, x, flow),
-                   lambda: warp_dflow_reference(g, x, flow)),
+                   lambda: warp_dflow_reference(g, x, flow),
+                   lib_vjp, _bound("K4", (g, x, flow), (flow,), pixels, c)),
         }
-        for name, (kern, plain) in pairs.items():
-            for _ in range(10):
-                kern()
-                plain()
-            k, p = [], []
-            for _ in range(2):  # alternate: kernel, plain, kernel, plain
-                k.append(_cuda_ms(kern, 200))
-                p.append(_cuda_ms(plain, 50))
-            print(f"{name} time {shape} bf16 image+flow (CUDA events): "
-                  f"kernel {min(k) * 1e3:.2f} us/call, plain "
-                  f"{min(p) * 1e3:.2f} us/call on {card}")
+        for name, (kern, plain, library, bound) in cases.items():
+            t = _time_kernel(f"{name} time {shape} bf16 image+flow", card,
+                             kern, plain, library, bound)
             if shape == TRAIN_WARP_SHAPES[0]:
-                out[name] = (err[name], min(k), min(p))
+                out[name] = {**t, "max_abs_err": err[name]}
     return out
 
 
@@ -373,7 +683,6 @@ def phase_slice(ckpt, rng):
     import torch
 
     from tecogan_tpu_torch.models import VSRModel
-    from tecogan_tpu_torch.ops.warp_cuda import warp_planes
 
     model = VSRModel(_test_opt(ckpt))
     requests = [
@@ -384,7 +693,7 @@ def phase_slice(ckpt, rng):
     ]
     n_pad = model.opt["test"]["num_pad_front"]
     expected = 0
-    warp_planes.launches = 0
+    _reset_counts()
     for i, data in enumerate(requests):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -398,39 +707,184 @@ def phase_slice(ckpt, rng):
               f"first request includes warm-up)")
         _require(out.dtype == np.uint8 and out.shape == (t, 536, 1280, 3),
                  f"request {i}: {out.dtype} {out.shape}")
-    launches = warp_planes.launches
-    print(f"warp_planes launches in the main path: {launches}, frames "
-          f"warped: {expected}")
-    _require(launches == expected, "the main path did not launch K1 once "
-             "per warped frame")
-    return model, launches
+    counts = _read_counts()
+    print(f"launches in the main path: {counts}, frames warped: {expected}")
+    _require(counts == {**dict.fromkeys(counts, 0), "K1": expected},
+             "the main path did not launch K1 (not in band mode), and only "
+             "K1, once per warped frame")
+    return model, counts["K1"]
 
 
-def phase_fps(model, card):
-    """bench.py's protocol: 64 frames of 134x320, bf16, chunk=64, one
-    warm-up, min of 5, a checksum read back to force the sync."""
+def phase_fps(model, card, variants, streams=1):
+    """bench.py's protocol for each variant (label, cfg, fold_streams): 64
+    frames of 134x320 per stream, bf16, chunk=64, a checksum read back to
+    force the sync; one warm-up each, then five rounds with the variants in
+    turns (the order reversed every other round), min of 5. Returns
+    {label: frames/s over all streams}."""
     import torch
 
-    from tecogan_tpu_torch.models.networks import infer_sequence
+    from tecogan_tpu_torch.models.networks import infer_sequence_batch
 
     gen = torch.Generator(device=model.device).manual_seed(SEED + 1)
-    lr = torch.rand((64, 134, 320, 3), generator=gen, device=model.device)
+    lr = torch.rand((streams, 64, 134, 320, 3), generator=gen,
+                    device=model.device)
 
-    def run(x):
-        return int(infer_sequence(model.net_g, x, model.cfg_g, chunk=64)
+    def run(x, cfg, fold):
+        return int(infer_sequence_batch(model.net_g, x, cfg, chunk=64,
+                                        fold_streams=fold)
                    .sum(dtype=torch.int64).item())
 
-    run(lr)
-    times = []
+    for _, cfg, fold in variants:
+        run(lr, cfg, fold)
+    times = {label: [] for label, _, _ in variants}
     for rep in range(5):
         x = lr + (rep + 1) * 1e-6
-        t0 = time.perf_counter()
-        run(x)
-        times.append(time.perf_counter() - t0)
-    fps = 64 / min(times)
-    print(f"FPS 64x134x320 4x BD nf=64 nb=10 bf16 chunk=64: {fps:.2f} "
-          f"frames/s (min of 5: {min(times) * 1e3:.1f} ms) on {card}")
+        for label, cfg, fold in (variants if rep % 2 == 0
+                                 else variants[::-1]):
+            t0 = time.perf_counter()
+            run(x, cfg, fold)
+            times[label].append(time.perf_counter() - t0)
+    fps = {}
+    for label, ts in times.items():
+        fps[label] = streams * 64 / min(ts)
+        print(f"FPS ({label}) {streams}x64x134x320 4x BD nf=64 nb=10 bf16 "
+              f"chunk=64: {fps[label]:.2f} frames/s over {streams} "
+              f"stream(s) (min of 5: {min(ts) * 1e3:.1f} ms; all "
+              f"{[round(t * 1e3, 1) for t in ts]}) on {card}")
     return fps
+
+
+def _kernel_counters():
+    from tecogan_tpu_torch.ops.warp_cuda import warp_planes, warp_rgb
+    from tecogan_tpu_torch.ops.warp_phases import warp_phases
+    from tecogan_tpu_torch.ops.warp_vjp import warp_dflow, warp_dimage
+
+    return {"K1": warp_planes, "K2": warp_rgb, "K3": warp_dimage,
+            "K4": warp_dflow, "K5": warp_phases}
+
+
+def _reset_counts():
+    """Set every kernel's launch count to 0."""
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    counters["K1"].band_launches = 0
+
+
+def _read_counts():
+    """Every kernel's launch count; "K1 band" counts K1's band-mode
+    launches, which "K1" includes."""
+    counters = _kernel_counters()
+    return {**{k: c.launches for k, c in counters.items()},
+            "K1 band": counters["K1"].band_launches}
+
+
+def _uint8_diff(a, b):
+    """(max |a - b|, share of values that differ) of two uint8 tensors."""
+    d = (a.int() - b.int()).abs()
+    return int(d.max()), float((d > 0).float().mean())
+
+
+def phase_p16(model, card, rng):
+    """The packed16 path at full width through infer_sequence_batch, 64
+    frames of 134x320 in one chunk: K5 once per warped frame and no other
+    kernel; the output against the card's default path, same weights and
+    frames; the FPS of both paths, in turns; a profile. Returns K5's
+    launch count."""
+    import dataclasses
+
+    import torch
+
+    from tecogan_tpu_torch.models.networks import infer_sequence_batch
+    from tecogan_tpu_torch.models.networks.frnet import _phase_flow_coords
+
+    cfg = dataclasses.replace(model.cfg_g, packed16=True)
+    lr = torch.from_numpy(_smooth_frames(rng, 64, 134, 320))[None].to(
+        model.device)
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = infer_sequence_batch(model.net_g, lr, cfg, chunk=64)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    print(f"packed16 path launches (64 frames warped): {counts}")
+    _require(counts == {**dict.fromkeys(counts, 0), "K5": 64},
+             "the packed16 path did not launch K5, and only K5, once per "
+             "warped frame")
+    _require(got.shape == (1, 64, 536, 1280, 3) and got.dtype == torch.uint8,
+             f"packed16 output {got.dtype} {tuple(got.shape)}")
+    ref = infer_sequence_batch(model.net_g, lr, model.cfg_g, chunk=64)
+    max_d, frac = _uint8_diff(got, ref)
+    ok = max_d <= P16_MAX_DIFF and frac < P16_FRAC
+    print(f"card bf16 packed16 vs card bf16 default path (64 moving frames "
+          f"of 134x320): max diff {max_d} (<= {P16_MAX_DIFF}), pixels "
+          f"differing {frac:.5f} (< {P16_FRAC}): {'ok' if ok else 'FAIL'}")
+    _require(ok, "packed16 output outside its band")
+    phase_fps(model, card, [("default", model.cfg_g, False),
+                            ("packed16", cfg, False)])
+    # each path's warp input made from one chunk's LR flow: the bf16 HR
+    # flow, or the f32 per-phase coordinates
+    with torch.inference_mode():
+        x = lr[0].permute(0, 3, 1, 2).to(cfg.dtype)
+        lr_flow = model.net_g.fnet(x, torch.cat([torch.zeros_like(x[:1]),
+                                                 x[:-1]]))
+        for label, fn in (
+                ("HR flow (default)",
+                 lambda: model.net_g.hr_flow(lr_flow, 134, 320)),
+                ("per-phase f32 coordinates (packed16)",
+                 lambda: _phase_flow_coords(cfg, lr_flow, 134, 320))):
+            fn()
+            print(f"{label} from a 64-frame chunk's LR flow: "
+                  f"{_cuda_ms(fn, 10):.3f} ms (CUDA events) on {card}")
+    x = torch.rand((1, 64, 134, 320, 3), device=model.device)
+    _profile(lambda: infer_sequence_batch(model.net_g, x, cfg, chunk=64),
+             "packed16, 64 frames", card, ("warp_phases_kernel",))
+    return counts["K5"]
+
+
+def phase_fold(model, card, rng):
+    """The fold_streams path at full width through infer_sequence_batch,
+    4 streams of 64 frames of 134x320 in one chunk: band-mode K1 once per
+    frame and no other kernel; each stream against the unfolded batched
+    path; aggregate FPS beside the unfolded path's; a profile. Returns
+    band-mode K1's launch count."""
+    import torch
+
+    from tecogan_tpu_torch.models.networks import infer_sequence_batch
+
+    lr = torch.from_numpy(np.stack([_smooth_frames(rng, 64, 134, 320)
+                                    for _ in range(FOLD_STREAMS)])).to(
+        model.device)
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = infer_sequence_batch(model.net_g, lr, model.cfg_g, chunk=64,
+                               fold_streams=True)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    print(f"fold_streams path launches ({FOLD_STREAMS} streams x 64 "
+          f"frames): {counts}")
+    _require(counts == {**dict.fromkeys(counts, 0), "K1": 64,
+                        "K1 band": 64},
+             "the fold path did not launch band-mode K1, and only it, once "
+             "per frame")
+    _require(got.shape == (FOLD_STREAMS, 64, 536, 1280, 3)
+             and got.dtype == torch.uint8,
+             f"fold output {got.dtype} {tuple(got.shape)}")
+    ref = infer_sequence_batch(model.net_g, lr, model.cfg_g, chunk=64)
+    diffs = [_uint8_diff(got[b], ref[b]) for b in range(FOLD_STREAMS)]
+    ok = all(m <= FOLD_MAX_DIFF and f < FOLD_FRAC for m, f in diffs)
+    print(f"card bf16 folded vs card bf16 unfolded batched path, per stream "
+          f"(max diff, pixels differing): {diffs} (<= {FOLD_MAX_DIFF}, < "
+          f"{FOLD_FRAC}): {'ok' if ok else 'FAIL'}")
+    _require(ok, "fold_streams output outside its band")
+    phase_fps(model, card, [("fold_streams", model.cfg_g, True),
+                            ("unfolded batch", model.cfg_g, False)],
+              streams=FOLD_STREAMS)
+    x = torch.rand((FOLD_STREAMS, 64, 134, 320, 3), device=model.device)
+    _profile(lambda: infer_sequence_batch(model.net_g, x, model.cfg_g,
+                                          chunk=64, fold_streams=True),
+             f"fold_streams, {FOLD_STREAMS}x64 frames", card,
+             ("warp_planes_kernel",))
+    return counts["K1 band"]
 
 
 def _profile(fn, label, card, keep):
@@ -491,6 +945,9 @@ def phase_profile(model, card):
 
 
 def phase_card_vs_cpu(sd, rng):
+    """The default and the packed16 path on the card, fp32 (TF32 off) and
+    bf16, each against the same path in fp32 on the CPU (its plain
+    versions), same weights and inputs."""
     import torch
 
     from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
@@ -500,22 +957,30 @@ def phase_card_vs_cpu(sd, rng):
     torch.backends.cuda.matmul.allow_tf32 = False
     print("card vs CPU: TF32 off for cuDNN convolutions and matmuls")
     lr = torch.from_numpy(_smooth_frames(rng, 8, 64, 64))
-    cfg32 = FRNetConfig(nf=NF, nb=NB, scale=SCALE)
-    cfg16 = FRNetConfig(nf=NF, nb=NB, scale=SCALE, compute_dtype="bfloat16")
-    cpu = infer_sequence(FRNet.from_state_dict(cfg32, sd, "cpu"), lr, cfg32,
-                         chunk=4).numpy().astype(np.int32)
-    net = FRNet.from_state_dict(cfg32, sd, "cuda")
-    for cfg, max_diff, floor in ((cfg32, F32_MAX_DIFF, F32_PSNR),
-                                 (cfg16, BF16_MAX_DIFF, BF16_PSNR)):
-        got = infer_sequence(net, lr.cuda(), cfg, chunk=4).cpu().numpy()
-        d = got.astype(np.int32) - cpu
-        mse = float(np.mean(d.astype(np.float64) ** 2))
-        psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
-        ok = np.abs(d).max() <= max_diff and psnr > floor
-        print(f"card {cfg.compute_dtype} vs CPU float32 (8x64x64, nf=64, "
-              f"nb=10): max diff {np.abs(d).max()} (<= {max_diff}), PSNR "
-              f"{psnr:.2f} dB (> {floor}): {'ok' if ok else 'FAIL'}")
-        _require(ok, f"card {cfg.compute_dtype} output outside its band")
+    cpu_net = FRNet.from_state_dict(FRNetConfig(nf=NF, nb=NB, scale=SCALE),
+                                    sd, "cpu")
+    net = FRNet.from_state_dict(FRNetConfig(nf=NF, nb=NB, scale=SCALE), sd,
+                                "cuda")
+    for packed16 in (False, True):
+        cfg32 = FRNetConfig(nf=NF, nb=NB, scale=SCALE, packed16=packed16)
+        cfg16 = FRNetConfig(nf=NF, nb=NB, scale=SCALE, packed16=packed16,
+                            compute_dtype="bfloat16")
+        cpu = infer_sequence(cpu_net, lr, cfg32,
+                             chunk=4).numpy().astype(np.int32)
+        for cfg, max_diff, floor in ((cfg32, F32_MAX_DIFF, F32_PSNR),
+                                     (cfg16, BF16_MAX_DIFF, BF16_PSNR)):
+            got = infer_sequence(net, lr.cuda(), cfg, chunk=4).cpu().numpy()
+            d = got.astype(np.int32) - cpu
+            mse = float(np.mean(d.astype(np.float64) ** 2))
+            psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+            ok = np.abs(d).max() <= max_diff and psnr > floor
+            path = "packed16" if packed16 else "default"
+            print(f"card {cfg.compute_dtype} vs CPU float32, {path} path "
+                  f"(8x64x64, nf=64, nb=10): max diff {np.abs(d).max()} (<= "
+                  f"{max_diff}), PSNR {psnr:.2f} dB (> {floor}): "
+                  f"{'ok' if ok else 'FAIL'}")
+            _require(ok, f"card {cfg.compute_dtype} {path} output outside "
+                     f"its band")
 
 
 # ---------------------------------------------------------------- training
@@ -572,14 +1037,6 @@ def _expected_launches(t, remat):
     return {"K2": t + 1 + (t if remat else 0), "K3": t - 1, "K4": t}
 
 
-def _kernel_counters():
-    from tecogan_tpu_torch.ops.warp_cuda import warp_planes, warp_rgb
-    from tecogan_tpu_torch.ops.warp_vjp import warp_dflow, warp_dimage
-
-    return {"K1": warp_planes, "K2": warp_rgb, "K3": warp_dimage,
-            "K4": warp_dflow}
-
-
 def phase_train(rng, card):
     """Five full-width training steps through VSRModel.train. Returns the
     K2/K3/K4 launch counts of that run."""
@@ -600,9 +1057,7 @@ def phase_train(rng, card):
                    for _ in range(TRAIN_STEPS)]
         w0 = {k: v.clone() for k, v in model.net_g.state_dict().items()}
         torch.cuda.reset_peak_memory_stats()
-        counters = _kernel_counters()
-        for c in counters.values():
-            c.launches = 0
+        _reset_counts()
         times = []
         for k, gt in enumerate(batches):
             batch = model.prepare_training_data({"gt": gt})
@@ -618,10 +1073,10 @@ def phase_train(rng, card):
                   f"({times[-1]:.2f} ms, CUDA events)")
             _require(all(math.isfinite(float(v)) for v in logs.values()),
                      f"step {k}: non-finite logs {logs}")
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = _read_counts()
         per_step = _expected_launches(TRAIN_T, cfg.remat)
-        expected = {"K1": 0, **{k: TRAIN_STEPS * v
-                                for k, v in per_step.items()}}
+        expected = {**dict.fromkeys(launches, 0),
+                    **{k: TRAIN_STEPS * v for k, v in per_step.items()}}
         print(f"training launches in {TRAIN_STEPS} steps: {launches}, "
               f"expected from the structure (t={TRAIN_T}, remat): "
               f"{expected}")
@@ -745,43 +1200,49 @@ def main() -> int:
         if any(k in line for k in ("registers", "spill", "error")):
             print(f"  ptxas: {line.strip()}")
 
-    max_err, timings = phase_k1(card)
+    times = {"K1": phase_k1(card), "K1 band": phase_k1_band(card),
+             "K5": phase_k5(card)}
 
     rng = np.random.default_rng(SEED)
     params = _jax_layout_params(rng, NF, NB, SCALE)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "G_random.npz")
         save_pytree(params, ckpt)
-        model, launches = phase_slice(ckpt, rng)
-    phase_fps(model, card)
+        model, k1_launches = phase_slice(ckpt, rng)
     phase_profile(model, card)
+    launches = {"K1": k1_launches, "K5": phase_p16(model, card, rng),
+                "K1 band": phase_fold(model, card, rng)}
     del model
     sd = state_dict_from_jax(params, NB, SCALE)
     phase_card_vs_cpu(sd, rng)
 
-    k234 = phase_k234(card)
-    train_launches = phase_train(rng, card)
+    times.update(phase_k234(card))
+    launches.update(phase_train(rng, card))
     phase_train_card_vs_cpu(sd, rng)
 
     _require("jax" not in sys.modules, "jax was imported")
-    ms, plain_ms = timings["bf16"]
-    rows = [{
-        "name": "warp_planes", "route": "cuda",
-        "source": "tecogan_tpu_torch/csrc/warp_planes.cu",
-        "replaces": "tecogan_tpu/ops/warp_pallas.py:153",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]
+    rows = []
     for key, name, source, replaces in (
+            ("K1", "warp_planes", "tecogan_tpu_torch/csrc/warp_planes.cu",
+             "tecogan_tpu/ops/warp_pallas.py:153"),
+            ("K1 band", "warp_planes_band",
+             "tecogan_tpu_torch/csrc/warp_planes.cu",
+             "tecogan_tpu/ops/warp_pallas.py:153"),
             ("K2", "warp_rgb", "tecogan_tpu_torch/csrc/warp_rgb.cu",
              "tecogan_tpu/ops/warp_pallas.py:473"),
             ("K3", "warp_dimage", "tecogan_tpu_torch/csrc/warp_vjp.cu",
              "tecogan_tpu/ops/warp_vjp.py:156"),
             ("K4", "warp_dflow", "tecogan_tpu_torch/csrc/warp_vjp.cu",
-             "tecogan_tpu/ops/warp_vjp.py:288")):
-        err, ms, plain_ms = k234[key]
+             "tecogan_tpu/ops/warp_vjp.py:288"),
+            ("K5", "warp_phases", "tecogan_tpu_torch/csrc/warp_phases.cu",
+             "tecogan_tpu/ops/warp_pallas.py:324")):
+        t = times[key]
+        _require(launches[key] > 0, f"{name} was not launched on its path")
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": train_launches[key],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "replaces": replaces, "launches": launches[key],
+                     **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}})
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

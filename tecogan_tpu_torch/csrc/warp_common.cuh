@@ -42,13 +42,12 @@ struct Taps {
   float fx, fy;  // the flow, read as fp32
 };
 
-template <typename TF>
-__device__ __forceinline__ Taps taps_at(const TF* flow, const Strides4& fs,
-                                        int b, int i, int j, int H, int W) {
+// The stencil of pixel (i, j) of an H x W clamp box displaced by (fx, fy).
+__device__ __forceinline__ Taps taps_of(float fx, float fy, int i, int j,
+                                        int H, int W) {
   Taps t;
-  const TF* f = flow + b * fs.s0 + i * fs.s1 + j * fs.s2;
-  t.fx = load_f32(f);
-  t.fy = load_f32(f + fs.s3);
+  t.fx = fx;
+  t.fy = fy;
   const float syc =
       fminf(fmaxf(__fadd_rn((float)i, t.fy), 0.0f), (float)(H - 1));
   const float sxc =
@@ -62,6 +61,14 @@ __device__ __forceinline__ Taps taps_at(const TF* flow, const Strides4& fs,
   t.y1 = min(t.y0 + 1, H - 1);
   t.x1 = min(t.x0 + 1, W - 1);
   return t;
+}
+
+// The stencil of output pixel (b, i, j), its flow read through strides.
+template <typename TF>
+__device__ __forceinline__ Taps taps_at(const TF* flow, const Strides4& fs,
+                                        int b, int i, int j, int H, int W) {
+  const TF* f = flow + b * fs.s0 + i * fs.s1 + j * fs.s2;
+  return taps_of(load_f32(f), load_f32(f + fs.s3), i, j, H, W);
 }
 
 // Pixel index -> (b, i, j) for a grid of one thread per output pixel.

@@ -8,6 +8,12 @@
 // padding, align_corners=True). Coordinates, tap weights and the
 // accumulation are fp32; the result is written once in the planes' dtype.
 //
+// Band mode (the TPU kernel's tiles_per_band, used by row-folded
+// multi-stream inference): the H rows are H / band streams of band rows,
+// the first band_valid of each valid. Row i samples at
+// clip(i mod band + fy, 0, band_valid-1) within its own band, so no stream
+// reads its neighbour's rows. band = 0 is the plain mode, bit for bit.
+//
 // Design. The TPU kernel enumerates displacement ranges over 32x128 tiles
 // with slab rolls because the TPU has no per-lane gather. Hopper gathers
 // natively, so this is a plain gather: one thread per output pixel
@@ -35,20 +41,27 @@ template <typename TI, typename TF>
 __global__ void warp_planes_kernel(const TI* __restrict__ planes,
                                    const TF* __restrict__ flow,
                                    TI* __restrict__ out, int n, int c, int H,
-                                   int W, Strides4 fs) {
+                                   int W, int band, int band_valid,
+                                   Strides4 fs) {
   int b, i, j;
   if (!pixel_of(n, H, W, b, i, j)) return;
-  const Taps t = taps_at(flow, fs, b, i, j, H, W);
+  // band mode: row i lies in the band of `band` rows that starts at
+  // i - row; it samples that band's first band_valid rows only
+  const int row = band ? i % band : i;
+  const int rows = band ? band_valid : H;
+  const int64_t first = (int64_t)(i - row) * W;
+  const TF* f = flow + b * fs.s0 + i * fs.s1 + j * fs.s2;
+  const Taps t = taps_of(load_f32(f), load_f32(f + fs.s3), row, j, rows, W);
   const float wy0 = __fsub_rn(1.0f, t.wy);
   const float wx0 = __fsub_rn(1.0f, t.wx);
   const float w00 = __fmul_rn(wx0, wy0);
   const float w01 = __fmul_rn(t.wx, wy0);
   const float w10 = __fmul_rn(wx0, t.wy);
   const float w11 = __fmul_rn(t.wx, t.wy);
-  const int64_t o00 = (int64_t)t.y0 * W + t.x0;
-  const int64_t o01 = (int64_t)t.y0 * W + t.x1;
-  const int64_t o10 = (int64_t)t.y1 * W + t.x0;
-  const int64_t o11 = (int64_t)t.y1 * W + t.x1;
+  const int64_t o00 = first + (int64_t)t.y0 * W + t.x0;
+  const int64_t o01 = first + (int64_t)t.y0 * W + t.x1;
+  const int64_t o10 = first + (int64_t)t.y1 * W + t.x0;
+  const int64_t o11 = first + (int64_t)t.y1 * W + t.x1;
 
   const int64_t plane = (int64_t)H * W;
   const TI* src = planes + (int64_t)b * c * plane;
@@ -65,13 +78,13 @@ __global__ void warp_planes_kernel(const TI* __restrict__ planes,
 
 template <typename TI, typename TF>
 int launch(const void* planes, const void* flow, void* out, int n, int c,
-           int H, int W, int64_t fs_n, int64_t fs_h, int64_t fs_w,
-           int64_t fs_k, void* stream) {
+           int H, int W, int band, int band_valid, int64_t fs_n,
+           int64_t fs_h, int64_t fs_w, int64_t fs_k, void* stream) {
   if ((int64_t)n * H * W == 0) return 0;
   warp_planes_kernel<TI, TF><<<blocks_for(n, H, W), kThreads, 0,
                                (cudaStream_t)stream>>>(
-      (const TI*)planes, (const TF*)flow, (TI*)out, n, c, H, W,
-      Strides4{fs_n, fs_h, fs_w, fs_k});
+      (const TI*)planes, (const TF*)flow, (TI*)out, n, c, H, W, band,
+      band_valid, Strides4{fs_n, fs_h, fs_w, fs_k});
   return (int)cudaGetLastError();
 }
 
@@ -80,13 +93,17 @@ int launch(const void* planes, const void* flow, void* out, int n, int c,
 // Plain C entry points, one per (planes dtype, flow dtype). Flow strides
 // are in elements, so an (n, H, W, 2) tensor and the (n, H, W, 2) view of
 // an NCHW (n, 2, H, W) tensor both work without a copy. Planes and out are
-// contiguous (n, c, H, W). Returns cudaGetLastError() after the launch.
+// contiguous (n, c, H, W). band = 0 warps each plane as one image; band > 0
+// (H a multiple of band) as H / band independent bands of band rows, each
+// clamped to its first band_valid rows. Returns cudaGetLastError() after
+// the launch.
 #define TECOGAN_WARP_ENTRY(NAME, TI, TF)                                      \
   extern "C" int NAME(const void* planes, const void* flow, void* out, int n, \
-                      int c, int H, int W, int64_t fs_n, int64_t fs_h,        \
-                      int64_t fs_w, int64_t fs_k, void* stream) {             \
-    return launch<TI, TF>(planes, flow, out, n, c, H, W, fs_n, fs_h, fs_w,    \
-                          fs_k, stream);                                      \
+                      int c, int H, int W, int band, int band_valid,          \
+                      int64_t fs_n, int64_t fs_h, int64_t fs_w, int64_t fs_k, \
+                      void* stream) {                                         \
+    return launch<TI, TF>(planes, flow, out, n, c, H, W, band, band_valid,    \
+                          fs_n, fs_h, fs_w, fs_k, stream);                    \
   }
 
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_f32_f32, float, float)

@@ -7,6 +7,11 @@ blocks (conv-ReLU-conv + skip), one (2x) or two (4x) ConvTranspose2d(3, 2,
 1, output_padding=1) + ReLU stages, conv_out, plus the upsampled LR frame
 as global residual. The JAX package's TPU layout rewrites (packed tail,
 folded conv_in, planes form) produce the same outputs and are not ported.
+
+``forward_packed`` takes the warped HR frame already in space_to_depth
+order (the packed16 recurrence's warp writes it so), and with
+``row_masks``/``residual_mh`` runs the row-folded multi-stream layout, the
+counterpart of ``srnet_apply_planes(row_masks=, residual_mh=)``.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.resize import get_upsampling_fn
+from ...ops.resize import (_device_matrix, apply_separable,
+                           get_upsampling_fn, upsample_mode)
 from ...ops.spatial import space_to_depth
 
 
@@ -37,6 +43,7 @@ class SRNet(nn.Module):
         super().__init__()
         self.scale = scale
         self.upsample = get_upsampling_fn(scale, degradation)
+        self.upsample_mode = upsample_mode(degradation)
         self.conv_in = nn.Sequential(
             _conv((scale * scale + 1) * in_nc, nf), nn.ReLU())
         self.resblocks = nn.Sequential(*[ResidualBlock(nf) for _ in range(nb)])
@@ -51,6 +58,40 @@ class SRNet(nn.Module):
                 hr_warped: torch.Tensor) -> torch.Tensor:
         """lr_curr (n, c, h, w) + warped previous HR (n, c, s*h, s*w) ->
         HR frame (n, out_nc, s*h, s*w)."""
-        out = torch.cat([lr_curr, space_to_depth(hr_warped, self.scale)], 1)
-        out = self.conv_up(self.resblocks(self.conv_in(out)))
-        return self.conv_out(out) + self.upsample(lr_curr)
+        return self.forward_packed(lr_curr,
+                                   space_to_depth(hr_warped, self.scale))
+
+    def forward_packed(self, lr_curr: torch.Tensor, hr_packed: torch.Tensor,
+                       row_masks: dict | None = None,
+                       residual_mh: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+        """lr_curr (n, c, h, w) + the warped previous HR frame in
+        space_to_depth order (n, s*s*c, h, w) -> HR frame (n, out_nc, s*h,
+        s*w).
+
+        ``row_masks`` (row-folded streams, ``frnet._fold_masks``): 0/1 row
+        masks ``lr`` (LR rows), ``up`` (2x rows) and ``planes`` (HR rows)
+        that zero the guard rows between streams after conv_in + ReLU, after
+        each residual conv and after each ConvTranspose + ReLU, so every
+        conv sees zeros where a lone stream's zero padding would be.
+        ``residual_mh`` replaces the global residual's vertical upsampling
+        matrix (block-diagonal over the streams).
+        """
+        out = torch.cat([lr_curr, hr_packed], 1)
+        if row_masks is None:
+            out = self.conv_up(self.resblocks(self.conv_in(out)))
+            return self.conv_out(out) + self.upsample(lr_curr)
+        m_lr = row_masks["lr"]
+        out = self.conv_in(out) * m_lr
+        for block in self.resblocks:
+            conv0, relu, conv1 = block.conv
+            res = relu(conv0(out)) * m_lr
+            out = out + conv1(res) * m_lr
+        stages = list(self.conv_up)
+        for k in range(0, len(stages), 2):
+            key = "planes" if k + 2 == len(stages) else "up"
+            out = stages[k + 1](stages[k](out)) * row_masks[key]
+        mw = _device_matrix(self.upsample_mode, lr_curr.shape[-1],
+                            lr_curr.dtype, lr_curr.device, scale=self.scale)
+        residual = apply_separable(lr_curr, residual_mh.to(lr_curr.dtype), mw)
+        return self.conv_out(out) + residual

@@ -34,6 +34,7 @@ __all__ = [
     "upsample_bilinear",
     "upsample_tecogan_bicubic",
     "get_upsampling_fn",
+    "upsample_mode",
     "matlab_imresize_matrix",
 ]
 
@@ -258,10 +259,17 @@ def upsample_tecogan_bicubic(x: torch.Tensor, scale: int) -> torch.Tensor:
     return _upsample(x, "tecogan_bicubic", scale)
 
 
-def get_upsampling_fn(scale: int, degradation: str):
-    """Degradation-dependent upsampler (reference `net_utils.py:85-97`)."""
+def upsample_mode(degradation: str) -> str:
+    """The resize mode of a degradation's upsampler (reference
+    `net_utils.py:85-97`)."""
     if degradation == "BI":
-        return functools.partial(upsample_bilinear, scale=scale)
+        return "bilinear_half_pixel"
     if degradation == "BD":
-        return functools.partial(upsample_tecogan_bicubic, scale=scale)
+        return "tecogan_bicubic"
     raise ValueError(f"Unrecognized degradation type: {degradation}")
+
+
+def get_upsampling_fn(scale: int, degradation: str):
+    """Degradation-dependent upsampler."""
+    return functools.partial(_upsample, mode=upsample_mode(degradation),
+                             scale=scale)

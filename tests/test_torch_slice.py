@@ -179,7 +179,16 @@ def test_port_imports_without_jax():
         net = FRNet.random(cfg, torch.Generator().manual_seed(0))
         out = infer_sequence(net, torch.rand(2, 16, 16, 3), cfg, chunk=2)
         assert out.shape == (2, 64, 64, 3) and out.dtype == torch.uint8
+        from tecogan_tpu_torch.models.networks import infer_sequence_batch
+        from tecogan_tpu_torch.ops.warp_phases import warp_phases
+        p16 = FRNetConfig(nf=8, nb=1, packed16=True)
+        out = infer_sequence(net, torch.rand(2, 16, 16, 3), p16, chunk=2)
+        assert out.shape == (2, 64, 64, 3) and out.dtype == torch.uint8
+        out = infer_sequence_batch(net, torch.rand(3, 2, 12, 16, 3), cfg,
+                                   chunk=2, fold_streams=True)
+        assert out.shape == (3, 2, 48, 64, 3) and out.dtype == torch.uint8
         assert warp_planes.launches == 0, warp_planes.launches
+        assert warp_phases.launches == 0, warp_phases.launches
         from tecogan_tpu_torch.models import schedules, steps
         from tecogan_tpu_torch.ops.warp_cuda import warp_rgb
         from tecogan_tpu_torch.ops.warp_vjp import warp_dflow, warp_dimage
