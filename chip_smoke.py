@@ -10,8 +10,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
 3. K1 (the inference warp kernel) against its plain PyTorch version on the
    card, at the main path's shapes, the TPU kernel test's shapes and 1080p;
    K1's band mode at the row-folded geometries of 4 streams of 134x320 at
-   4x and 3 streams at 2x; K5 (the phase-plane warp) at the packed16
-   path's shape, the TPU kernel test's shapes and its extreme flows;
+   4x and 3 streams at 2x, and at bands whose row tiles straddle two bands
+   or hold several; K5 (the phase-plane warp) at the packed16 path's
+   shape, the TPU kernel test's shapes and its extreme flows; for every
+   kernel also ragged tiles (widths and heights off the tile, 1 and 2
+   channels) and tensors one element off 16-byte alignment, so each branch
+   of the kernels' launchers runs; K1 is timed on a smooth flow, as the
+   path has, and on i.i.d. noise; each of K1, K1 band and K5 beside two
+   controls: its own call with taps as coalesced as a copy (a zero flow)
+   and a bf16 add over its output's size;
 4. the inference path: a VSRModel at the flagship width (nf=64, nb=10, 4x,
    BD, bf16) serves three requests, and K1 must have been launched once
    per warped frame; then a torch.profiler breakdown of one run at
@@ -72,6 +79,9 @@ K5_BF16_ULPS = 1
 # K1's band mode: (streams, scale, LR rows, LR columns) of the fold path's
 # geometry and of a 2x one
 BAND_GEOMETRIES = ((4, 4, 134, 320), (3, 2, 134, 320))
+# band-mode cases whose 4-row tiles straddle two bands or hold several, as
+# (streams, band, band_valid, width)
+BAND_STRADDLES = ((3, 34, 30, 100), (4, 3, 2, 40), (6, 1, 1, 40))
 FOLD_STREAMS = 4
 # card bf16 packed16 against the card bf16 default path (the JAX package's
 # band, tests/test_warp_pallas.py:121-122): the coordinates are f32 there
@@ -170,9 +180,10 @@ def _cuda_ms(fn, iters):
 
 
 def _device_ms(fn, iters=20):
-    """Device time per call of ``fn``: every kernel it launches, summed by
-    torch.profiler over ``iters`` calls. None if the profiler records no
-    device time."""
+    """Device time per call of ``fn`` from torch.profiler over ``iters``
+    calls: each kernel's mean time per launch, times its launches per call,
+    summed over the kernels (so a launch the profiler drops does not count
+    as time saved). None if the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -183,9 +194,11 @@ def _device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3 if us else None
+    us = sum(e.self_device_time_total / e.count
+             * max(1, round(e.count / iters))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.count)
+    return us / 1e3 if us else None
 
 
 def _bound(kernel, inputs, outputs, pixels, channels):
@@ -232,14 +245,35 @@ def _time_kernel(label, card, kern, plain, library, bound):
          "device_ms": dev, "library_device_ms": lib_dev,
          "bound_ms": bound[0], "bound_by": bound[1]}
 
-    def us(ms):
-        return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
-
     print(f"{label} (CUDA events, us/call): kernel {t['ms'] * 1e3:.2f} "
-          f"[device {us(dev)}], plain {t['plain_ms'] * 1e3:.2f}, library "
-          f"{t['library_ms'] * 1e3:.2f} [device {us(lib_dev)}]; bound "
+          f"[device {_us(dev)}], plain {t['plain_ms'] * 1e3:.2f}, library "
+          f"{t['library_ms'] * 1e3:.2f} [device {_us(lib_dev)}]; bound "
           f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) on {card}")
     return t
+
+
+def _us(ms):
+    return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+
+
+def _controls(label, card, kern, plain, out):
+    """Print the device time of ``kern``, a kernel call whose taps are as
+    coalesced as a copy (held bit-exact to ``plain``), and of a bf16 add of
+    two tensors of the output's size, a streaming yardstick of about the
+    same bytes: together they bound what any tap pattern could save."""
+    import torch
+
+    _require(torch.equal(kern(), plain()),
+             f"{label} disagrees with its plain version")
+    a = torch.randn(out.shape, device=out.device).bfloat16()
+    b = torch.randn(out.shape, device=out.device).bfloat16()
+    for _ in range(10):
+        kern()
+        torch.add(a, b)
+    print(f"{label} controls (device us/call): coalesced taps "
+          f"{_us(_device_ms(kern))}, bf16 add over the output "
+          f"{tuple(out.shape)} {_us(_device_ms(lambda: torch.add(a, b)))} "
+          f"on {card}")
 
 
 def phase_k1(card):
@@ -266,6 +300,12 @@ def phase_k1(card):
                 cases.append((shape, pd, "f32", "nhwc", sigma))
     for pd in dts:
         cases.append(((1, 3, 1080, 1920), pd, pd, "nchw", 30.0))
+    # planes and flow that start off a 16-byte boundary (one element in),
+    # and ragged tiles: widths off the 64-column tile and the 32-lane warp,
+    # heights off the 4-row tile
+    for shape in ((1, 3, 536, 1280), (1, 3, 13, 200), (2, 1, 5, 33)):
+        for pd in dts:
+            cases.append((shape, pd, pd, "offset", 30.0))
 
     max_err = 0.0
     for shape, pd, fd, layout, sigma in cases:
@@ -275,6 +315,8 @@ def phase_k1(card):
         flow = flow.to(dts[fd])
         flow = (flow.permute(0, 2, 3, 1) if layout == "nchw"
                 else flow.permute(0, 2, 3, 1).contiguous())
+        if layout == "offset":
+            planes, flow = _offset_by_one(planes), _offset_by_one(flow)
         torch.cuda.synchronize()
         got = warp_planes(planes, flow)
         torch.cuda.synchronize()
@@ -295,23 +337,42 @@ def phase_k1(card):
         _require(ok, f"K1 disagrees with its plain version at {shape} {pd}")
 
     # the main path's call: a bf16 HR frame and the (n, H, W, 2) view of
-    # its bf16 NCHW HR flow; the library call is grid_sample with border
-    # padding, whose normalised coordinates round differently
+    # its bf16 NCHW HR flow, smooth as FNet's upsampled flow is (the row),
+    # and i.i.d. noise (the worst case for the taps' cache lines); the
+    # library call is grid_sample with border padding, whose normalised
+    # coordinates round differently
     shape = (1, 3, 536, 1280)
     planes = torch.randn(shape, generator=gen, device=dev).bfloat16()
-    flow = (torch.randn((1, 2, 536, 1280), generator=gen, device=dev)
-            * 6.0).bfloat16().permute(0, 2, 3, 1)
-    grid = _grid(flow, planes.dtype)
-    out = warp_planes(planes, flow)
-    t = _time_kernel(
-        f"K1 time {shape} bf16 planes+flow", card,
-        lambda: warp_planes(planes, flow),
-        lambda: warp_planes_reference(planes, flow),
-        lambda: F.grid_sample(planes, grid, mode="bilinear",
-                              padding_mode="border", align_corners=True),
-        _bound("K1", (planes, flow), (out,), out[:, 0].numel(), 3))
+    for kind in ("i.i.d.", "smooth"):
+        flow = (_smooth_flow(gen, dev, 1, 536, 1280, 6.0) if kind == "smooth"
+                else torch.randn((1, 2, 536, 1280), generator=gen,
+                                 device=dev) * 6.0)
+        flow = flow.bfloat16().permute(0, 2, 3, 1)
+        grid = _grid(flow, planes.dtype)
+        out = warp_planes(planes, flow)
+        t = _time_kernel(
+            f"K1 time {shape} bf16 planes+flow, {kind} flow sigma 6", card,
+            lambda: warp_planes(planes, flow),
+            lambda: warp_planes_reference(planes, flow),
+            lambda: F.grid_sample(planes, grid, mode="bilinear",
+                                  padding_mode="border", align_corners=True),
+            _bound("K1", (planes, flow), (out,), out[:, 0].numel(), 3))
+    zero = torch.zeros_like(flow)
+    _controls(f"K1 {shape} zero flow", card, lambda: warp_planes(planes, zero),
+              lambda: warp_planes_reference(planes, zero), out)
     t["max_abs_err"] = max_err
     return t
+
+
+def _offset_by_one(t):
+    """A contiguous copy of t that starts one element into its allocation,
+    so its pointer is off a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def phase_k1_band(card):
@@ -328,13 +389,18 @@ def phase_k1_band(card):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    # (streams, band, band_valid, width): the fold path's geometries, then
+    # bands whose 4-row tiles straddle two bands (34 rows) or hold
+    # several (3 rows)
+    geometries = [(streams, _fold_geometry(s, h)[2], s * h, s * w)
+                  for streams, s, h, w in BAND_GEOMETRIES]
+    geometries += BAND_STRADDLES
     max_err, n_cases = 0.0, 0
-    for streams, s, h, w in BAND_GEOMETRIES:
-        _, _, band = _fold_geometry(s, h)
-        hh, ww, valid = streams * band, s * w, s * h
+    for streams, band, valid, ww in geometries:
+        hh = streams * band
         for pd in dts:
             for fd in dts:
-                for layout in ("nhwc", "nchw"):
+                for layout in ("nhwc", "nchw", "offset"):
                     for sigma in (6.0, 30.0, 300.0):
                         planes = torch.randn((1, 3, hh, ww), generator=gen,
                                              device=dev).to(dts[pd])
@@ -343,6 +409,9 @@ def phase_k1_band(card):
                         flow = flow.permute(0, 2, 3, 1)
                         if layout == "nhwc":
                             flow = flow.contiguous()
+                        if layout == "offset":
+                            planes = _offset_by_one(planes)
+                            flow = _offset_by_one(flow)
                         torch.cuda.synchronize()
                         got = warp_planes(planes, flow, band, valid)
                         torch.cuda.synchronize()
@@ -354,13 +423,15 @@ def phase_k1_band(card):
                               else _bf16_ulps(got, ref) <= K1_BF16_ULPS)
                         _require(ok and got.dtype == planes.dtype,
                                  f"K1 band mode disagrees with its plain "
-                                 f"version: {streams} streams {s}x {h}x{w} "
-                                 f"planes={pd} flow={fd}/{layout} "
-                                 f"sigma={sigma} max_abs_err={err:.3g}")
+                                 f"version: {streams} streams of {band} "
+                                 f"rows ({valid} valid) x {ww} planes={pd} "
+                                 f"flow={fd}/{layout} sigma={sigma} "
+                                 f"max_abs_err={err:.3g}")
                         n_cases += 1
     print(f"K1 band mode against its plain version: {n_cases} cases ok "
-          f"(geometries {BAND_GEOMETRIES}, planes and flow f32/bf16, flow "
-          f"NHWC and an NCHW view, sigma 6/30/300); max abs err "
+          f"((streams, band, valid, width) {geometries}, planes and flow "
+          f"f32/bf16, flow NHWC, an NCHW view and a copy one element off "
+          f"16-byte alignment (planes too), sigma 6/30/300); max abs err "
           f"{max_err:.3g}")
 
     # the fold path's call: 4 folded streams, bf16 planes and the
@@ -386,6 +457,10 @@ def phase_k1_band(card):
         lambda: F.grid_sample(x_lib, grid, mode="bilinear",
                               padding_mode="border", align_corners=True),
         _bound("K1", (planes, flow), (out,), out[:, 0].numel(), 3))
+    zero = torch.zeros_like(flow)
+    _controls(f"K1 band {tuple(planes.shape)} zero flow", card,
+              lambda: warp_planes(planes, zero, band, valid),
+              lambda: warp_planes_reference(planes, zero, band, valid), out)
     t["max_abs_err"] = max_err
     return t
 
@@ -422,11 +497,15 @@ def _phase_coords(flow, s):
             torch.clamp(jj + px + f[:, 0], 0.0, ww - 1.0).contiguous())
 
 
-# K5's cases as (n, s, h, w, flow): the packed16 path's frame, the TPU
-# kernel test's two shapes, and its extreme flow (sigma 150 clipped to
-# +-170 HR pixels, near the kernel's halo bound)
-K5_CASES = ((1, 4, 134, 320, "smooth"), (1, 4, 32, 128, "smooth"),
-            (1, 2, 24, 256, "smooth"), (1, 4, 16, 128, "extreme"))
+# K5's cases as (n, s, h, w, flow, channels): the packed16 path's frame,
+# the TPU kernel test's two shapes, its extreme flow (sigma 150 clipped to
+# +-170 HR pixels, near the kernel's halo bound), ragged tiles (widths off
+# the 32/s * 2-column tile, heights off the 4-row tile) and channel counts
+# other than 3 (the kernel's channel loop)
+K5_CASES = ((1, 4, 134, 320, "smooth", 3), (1, 4, 32, 128, "smooth", 3),
+            (1, 2, 24, 256, "smooth", 3), (1, 4, 16, 128, "extreme", 3),
+            (1, 4, 13, 33, "smooth", 3), (2, 2, 9, 45, "smooth", 2),
+            (1, 4, 5, 20, "smooth", 1))
 
 
 def phase_k5(card):
@@ -442,7 +521,7 @@ def phase_k5(card):
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     max_err, n_cases = 0.0, 0
-    for n, s, h, w, kind in K5_CASES:
+    for n, s, h, w, kind, c in K5_CASES:
         hh, ww = s * h, s * w
         for sigma in ((6.0, 30.0, 300.0) if kind == "smooth" else (150.0,)):
             if kind == "smooth":
@@ -451,18 +530,25 @@ def phase_k5(card):
                 flow = torch.clamp(torch.randn((n, 2, hh, ww), generator=gen,
                                                device=dev) * sigma,
                                    -170.0, 170.0)
-            sy, sx = _phase_coords(flow, s)
+            coords = _phase_coords(flow, s)
+            off_coords = tuple(_offset_by_one(t) for t in coords)
             for pd in dts:
-                hr = torch.randn((n, 3, hh, ww), generator=gen,
+                hr = torch.randn((n, c, hh, ww), generator=gen,
                                  device=dev).to(dts[pd])
                 view = phase_planes(hr, s)  # the path's carry, no copy
-                for planes in (view, view.contiguous().flatten(1, 2)):
+                # the view, a contiguous (n, s*s, c, h, w) copy, and the
+                # view of a frame and coordinates one element off 16-byte
+                # alignment
+                for planes, (sy, sx) in (
+                        (view, coords),
+                        (view.contiguous().flatten(1, 2), coords),
+                        (phase_planes(_offset_by_one(hr), s), off_coords)):
                     torch.cuda.synchronize()
                     got = warp_phases(planes, sy, sx, s)
                     torch.cuda.synchronize()
                     ref = warp_phases_reference(planes, sy, sx, s)
                     _require(got.dtype == hr.dtype
-                             and got.shape == (n, 3, s * s, h, w),
+                             and got.shape == (n, c, s * s, h, w),
                              f"K5 output {got.dtype} {tuple(got.shape)}")
                     err = float((got.float() - ref.float()).abs().max())
                     max_err = max(max_err, err)
@@ -475,13 +561,14 @@ def phase_k5(card):
                     n_cases += 1
     print(f"K5 against its plain version: {n_cases} cases ok ({K5_CASES}, "
           f"sigma 6/30/300 smooth, planes f32 (bit-exact) and bf16 (<= "
-          f"{K5_BF16_ULPS} ulp), the HR frame's phase-plane view and a "
-          f"contiguous (n, s*s, c, h, w) copy); max abs err {max_err:.3g}")
+          f"{K5_BF16_ULPS} ulp), the HR frame's phase-plane view, a "
+          f"contiguous (n, s*s, c, h, w) copy, and a view and coordinates "
+          f"one element off 16-byte alignment); max abs err {max_err:.3g}")
 
     # the packed16 path's call: the bf16 HR frame's phase-plane view and
     # f32 coordinates; the library call is grid_sample on the HR frame with
     # the grid in phase order, zero padding as K5's halo
-    n, s, h, w, _ = K5_CASES[0]
+    n, s, h, w, _, _ = K5_CASES[0]
     hh, ww = s * h, s * w
     sy, sx = _phase_coords(_smooth_flow(gen, dev, n, hh, ww, 6.0), s)
     hr = torch.randn((n, 3, hh, ww), generator=gen, device=dev).bfloat16()
@@ -497,6 +584,10 @@ def phase_k5(card):
         lambda: F.grid_sample(hr, grid, mode="bilinear", padding_mode="zeros",
                               align_corners=True),
         _bound("K5", (hr, sy, sx), (out,), sy.numel(), 3))
+    sy0, sx0 = _phase_coords(torch.zeros((n, 2, hh, ww), device=dev), s)
+    _controls(f"K5 {(n, s * s, 3, h, w)} at its pixels' own coordinates",
+              card, lambda: warp_phases(view, sy0, sx0, s),
+              lambda: warp_phases_reference(view, sy0, sx0, s), out)
     t["max_abs_err"] = max_err
     return t
 
@@ -1196,9 +1287,15 @@ def main() -> int:
 
     path, secs, log = kernel_build.build()
     print(f"nvcc build for sm_90a: {path.name} in {secs:.2f} s")
+    kernel = ""
     for line in log.splitlines():
-        if any(k in line for k in ("registers", "spill", "error")):
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            # the mangled kernel name from its name to its template arguments
+            kernel = line.split("'")[1]
+            k = kernel.find("_kernelI")
+            kernel = kernel[kernel.rfind("warp_", 0, k):kernel.find("EEv") + 1]
+        elif any(k in line for k in ("registers", "spill", "error")):
+            print(f"  ptxas: {kernel}: {line.strip()}")
 
     times = {"K1": phase_k1(card), "K1 band": phase_k1_band(card),
              "K5": phase_k5(card)}

@@ -89,4 +89,20 @@ inline unsigned int blocks_for(int n, int H, int W) {
   return (unsigned int)(((int64_t)n * H * W + kThreads - 1) / kThreads);
 }
 
+// The row tiles of the gathers K1 and K5: a block of kTileRows warps, one
+// output row each; lane l of a warp takes the kTileSteps pixels 32 output
+// columns apart at tile column l, 32 + l, ..., so each warp-wide load or
+// store covers 32 neighbouring columns. The grid is (column tiles, row
+// tiles, images), and a thread decodes its pixels from blockIdx and
+// threadIdx without a division. ops/warp_cuda.py::tile_plan mirrors it.
+constexpr int kTileRows = 4;
+constexpr int kTileSteps = 2;
+
+// The arguments of every C entry point arrive packed in one int64 array
+// (one ctypes conversion per call instead of one per argument).
+template <typename T>
+__host__ __forceinline__ T* arg_ptr(const int64_t* a, int k) {
+  return reinterpret_cast<T*>(static_cast<intptr_t>(a[k]));
+}
+
 }  // namespace tecogan

@@ -20,20 +20,43 @@
 // (ops/warp_phases.py::warp_phases_reference) rounds the same. The result
 // is written once in the planes' dtype.
 //
+// Bound: bytes. At bf16 planes, per output element 2 B in and 2 B out, plus
+// 8 B of f32 coordinates per output pixel shared by the c channels: 13.72
+// MB for a 4x 134x320 frame, 4.10 us at 3.35 TB/s.
+//
 // Design. The TPU kernel shares one displacement enumeration and its slab
 // loads across all s*s output phases of a tile, because the TPU has no
-// per-lane gather. Hopper gathers natively: one thread per output
-// (b, q, i, j) computes its stencil once and loops over the channels.
-// Neighbouring threads take neighbouring j of one phase, so the coordinate
-// reads and the output writes coalesce, and their taps fall on neighbouring
-// plane columns. The planes are read through six element strides, logically
-// (n, py, px, c, i, j): the JAX package's (n, s*s, c, h, w) tensor and the
-// phase-plane view of an NCHW HR frame both work without a copy. The output
-// is contiguous (n, s*s, c, h, w), i.e. conv_in's space_to_depth order.
-//
-// Bound. Bytes: at bf16 planes, per output element 2 B in and 2 B out, plus
-// 8 B of f32 coordinates per output pixel shared by the c channels; about
-// 13.7 MB for a 4x 134x320 frame, a few microseconds at HBM bandwidth.
+// per-lane gather; Hopper gathers natively. The first port ran one thread
+// per output (b, q, i, j), decoded with four 64-bit div/mod pairs, with
+// neighbouring threads on neighbouring j of one phase (so a warp's taps lay
+// s HR columns apart) and a division by the runtime scale per tap. Now:
+// - the scale is a template parameter (2 or 4): a tap's plane row and
+//   phase are a shift and a mask;
+// - the grid is (column tiles, row tiles, n*s) of the tiles in
+//   warp_common.cuh: blockIdx.z gives the image and the output phase row
+//   py, a warp takes one output row i, and no index is divided;
+// - within a warp the px phase runs fastest: lane l takes px = l mod s and
+//   j = l div s (plus 32/s per step), i.e. HR column s*j + px, so a warp
+//   covers 32 neighbouring HR columns of one HR row, and its taps fall on
+//   the cache lines around those 32 sample points (contiguous in the
+//   phase-plane view of an HR frame); its coordinate loads and output
+//   stores are s runs of 32/s neighbouring elements;
+// - the channel count of the packed16 path (3) is a template parameter, so
+//   a thread issues all 12 x kTileSteps tap loads before it uses one;
+// - tap offsets are 32-bit within an image and coordinate offsets 32-bit
+//   within a row (the wrapper checks both), from 64-bit bases set once per
+//   thread; a column past w reads column w-1 and stores nothing, and a tap
+//   outside the HR image is a predicate, so no branch guards a load.
+// What is left (PERF.md, section 6): at its pixels' own coordinates (a
+// copy's access pattern) the kernel still takes about three times a
+// streaming add's time over the same output: the per-pixel work, or the
+// coordinates-then-taps chain of two L2 round trips (not yet told apart).
+// The planes are read through six element strides, logically
+// (n, py, px, c, i, j): the JAX package's (n, s*s, c, h, w) tensor (whose
+// phases lie in separate planes: slower, still right) and the phase-plane
+// view of an NCHW HR frame both work without a copy. No shared memory.
+// The output is contiguous (n, s*s, c, h, w), i.e. conv_in's
+// space_to_depth order.
 
 #include "warp_common.cuh"
 
@@ -44,108 +67,181 @@ using namespace tecogan;
 // the TPU kernel's halo: displacements up to s * (48 - 2) HR pixels
 constexpr int kHaloBound = 46;
 
-// Element strides of planes viewed as (n, py, px, c, i, j).
+// Element strides of planes viewed as (n, py, px, c, i, j); those within
+// an image fit in 32 bits.
 struct PlaneStrides {
-  int64_t b, py, px, c, i, j;
+  int64_t b;
+  int py, px, c, i, j;
 };
 
-// The offset of HR pixel (Y, X) within one (b, ch) plane set, or -1 where
-// the pixel lies outside the H x W image.
-__device__ __forceinline__ int64_t tap_offset(int Y, int X, int s, int H,
-                                              int W, const PlaneStrides& ps) {
-  if (Y < 0 || Y >= H || X < 0 || X >= W) return -1;
-  return (int64_t)(Y / s) * ps.i + (int64_t)(Y % s) * ps.py +
-         (int64_t)(X / s) * ps.j + (int64_t)(X % s) * ps.px;
+// The parts of an HR tap's offset within one (b, ch) plane set: row Y lies
+// in plane row Y div S of phase row Y mod S, likewise column X.
+template <int S>
+__device__ __forceinline__ int row_offset(int Y, const PlaneStrides& ps) {
+  constexpr int L = S == 4 ? 2 : 1;
+  return (Y >> L) * ps.i + (Y & (S - 1)) * ps.py;
+}
+template <int S>
+__device__ __forceinline__ int col_offset(int X, const PlaneStrides& ps) {
+  constexpr int L = S == 4 ? 2 : 1;
+  return (X >> L) * ps.j + (X & (S - 1)) * ps.px;
 }
 
 template <typename TI>
-__device__ __forceinline__ float tap_value(const TI* p, int64_t off) {
+__device__ __forceinline__ float tap_value(const TI* p, int off) {
   return off < 0 ? 0.0f : load_f32(p + off);
 }
 
-template <typename TI>
-__global__ void warp_phases_kernel(const TI* __restrict__ planes,
-                                   const float* __restrict__ sy,
-                                   const float* __restrict__ sx,
-                                   TI* __restrict__ out, int n, int s, int c,
-                                   int h, int w, PlaneStrides ps, Strides4 ys,
-                                   Strides4 xs) {
-  const int nq = s * s;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)n * nq * h * w) return;
-  const int j = (int)(idx % w);
-  int64_t r = idx / w;
-  const int i = (int)(r % h);
-  r /= h;
-  const int q = (int)(r % nq);
-  const int b = (int)(r / nq);
+// Scale S (2 or 4); C channels (C = 0: c channels, one at a time).
+template <typename TI, int S, int C>
+__global__ void __launch_bounds__(32 * kTileRows)
+    warp_phases_kernel(const TI* __restrict__ planes,
+                       const float* __restrict__ sy,
+                       const float* __restrict__ sx, TI* __restrict__ out,
+                       int c, int h, int w, PlaneStrides ps, Strides4 ys,
+                       Strides4 xs) {
+  static_assert(S == 2 || S == 4, "K5 is built for scales 2 and 4");
+  constexpr int L = S == 4 ? 2 : 1;
+  constexpr int kJ = 32 / S;  // output columns of one phase per warp step
+  const int i = blockIdx.y * kTileRows + threadIdx.y;
+  if (i >= h) return;
+  const int b = blockIdx.z >> L;
+  const int px = threadIdx.x & (S - 1);
+  const int q = (blockIdx.z & (S - 1)) * S + px;
+  const int j0 = blockIdx.x * (kJ * kTileSteps) + (threadIdx.x >> L);
 
-  const float ycoord = sy[b * ys.s0 + q * ys.s1 + i * ys.s2 + j * ys.s3];
-  const float xcoord = sx[b * xs.s0 + q * xs.s1 + i * xs.s2 + j * xs.s3];
-  const float row = (float)(s * i);
-  const float col = (float)(s * j);
-  const float bound = (float)(s * kHaloBound);
-  const float syc = fminf(fmaxf(ycoord, __fsub_rn(row, bound)),
-                          __fadd_rn(row, bound));
-  const float sxc = fminf(fmaxf(xcoord, __fsub_rn(col, bound)),
-                          __fadd_rn(col, bound));
-  const float y0f = floorf(syc);
-  const float x0f = floorf(sxc);
-  const float wy = __fsub_rn(syc, y0f);
-  const float wx = __fsub_rn(sxc, x0f);
-  const float wy0 = __fsub_rn(1.0f, wy);
-  const float wx0 = __fsub_rn(1.0f, wx);
-  const float w00 = __fmul_rn(wy0, wx0);
-  const float w01 = __fmul_rn(wy0, wx);
-  const float w10 = __fmul_rn(wy, wx0);
-  const float w11 = __fmul_rn(wy, wx);
-
-  const int H = s * h, W = s * w;
-  const int y0 = (int)y0f, x0 = (int)x0f;
-  const int64_t o00 = tap_offset(y0, x0, s, H, W, ps);
-  const int64_t o01 = tap_offset(y0, x0 + 1, s, H, W, ps);
-  const int64_t o10 = tap_offset(y0 + 1, x0, s, H, W, ps);
-  const int64_t o11 = tap_offset(y0 + 1, x0 + 1, s, H, W, ps);
+  // the coordinate rows in 64 bits once; offsets within them are 32-bit
+  const float* yrow = sy + b * ys.s0 + q * ys.s1 + i * ys.s2;
+  const float* xrow = sx + b * xs.s0 + q * xs.s1 + i * xs.s2;
+  const int yj = (int)ys.s3, xj = (int)xs.s3;
+  // a column past w reads column w-1's coordinates and stores nothing (no
+  // branch around the loads)
+  float yc[kTileSteps], xc[kTileSteps];
+#pragma unroll
+  for (int k = 0; k < kTileSteps; ++k) {
+    const int j = min(j0 + kJ * k, w - 1);
+    yc[k] = yrow[j * yj];
+    xc[k] = xrow[j * xj];
+  }
+  const float row = (float)(S * i);
+  const float bound = (float)(S * kHaloBound);
+  const int H = S * h, W = S * w;
+  int o[kTileSteps][4];
+  float wt[kTileSteps][4];
+#pragma unroll
+  for (int k = 0; k < kTileSteps; ++k) {
+    const float col = (float)(S * (j0 + kJ * k));
+    const float syc = fminf(fmaxf(yc[k], __fsub_rn(row, bound)),
+                            __fadd_rn(row, bound));
+    const float sxc = fminf(fmaxf(xc[k], __fsub_rn(col, bound)),
+                            __fadd_rn(col, bound));
+    const float y0f = floorf(syc);
+    const float x0f = floorf(sxc);
+    const float wy = __fsub_rn(syc, y0f);
+    const float wx = __fsub_rn(sxc, x0f);
+    const float wy0 = __fsub_rn(1.0f, wy);
+    const float wx0 = __fsub_rn(1.0f, wx);
+    wt[k][0] = __fmul_rn(wy0, wx0);
+    wt[k][1] = __fmul_rn(wy0, wx);
+    wt[k][2] = __fmul_rn(wy, wx0);
+    wt[k][3] = __fmul_rn(wy, wx);
+    // each tap's offset, or -1 where it lies outside the HR image
+    const int y0 = (int)y0f, x0 = (int)x0f;
+    const bool in_y0 = (unsigned)y0 < (unsigned)H;
+    const bool in_y1 = (unsigned)(y0 + 1) < (unsigned)H;
+    const bool in_x0 = (unsigned)x0 < (unsigned)W;
+    const bool in_x1 = (unsigned)(x0 + 1) < (unsigned)W;
+    const int r0 = row_offset<S>(y0, ps), r1 = row_offset<S>(y0 + 1, ps);
+    const int c0 = col_offset<S>(x0, ps), c1 = col_offset<S>(x0 + 1, ps);
+    o[k][0] = in_y0 && in_x0 ? r0 + c0 : -1;
+    o[k][1] = in_y0 && in_x1 ? r0 + c1 : -1;
+    o[k][2] = in_y1 && in_x0 ? r1 + c0 : -1;
+    o[k][3] = in_y1 && in_x1 ? r1 + c1 : -1;
+  }
 
   const TI* src = planes + b * ps.b;
   const int64_t plane = (int64_t)h * w;
-  TI* dst = out + ((int64_t)b * nq + q) * c * plane + (int64_t)i * w + j;
-  for (int ch = 0; ch < c; ++ch) {
-    const TI* p = src + ch * ps.c;
-    float acc = __fmul_rn(w00, tap_value(p, o00));
-    acc = __fadd_rn(acc, __fmul_rn(w01, tap_value(p, o01)));
-    acc = __fadd_rn(acc, __fmul_rn(w10, tap_value(p, o10)));
-    acc = __fadd_rn(acc, __fmul_rn(w11, tap_value(p, o11)));
-    store_f32(dst + ch * plane, acc);
+  // output (b, q, ch, i, j); b * s*s + q = blockIdx.z * s + px
+  TI* dst = out + ((int64_t)(blockIdx.z * S + px) * c * h + i) * w;
+  // the TPU kernel's order, stored where the column exists
+  auto finish = [&](TI* d, int k, const float* v) {
+    float acc = __fmul_rn(wt[k][0], v[0]);
+    acc = __fadd_rn(acc, __fmul_rn(wt[k][1], v[1]));
+    acc = __fadd_rn(acc, __fmul_rn(wt[k][2], v[2]));
+    acc = __fadd_rn(acc, __fmul_rn(wt[k][3], v[3]));
+    if (j0 + kJ * k < w) store_f32(d + j0 + kJ * k, acc);
+  };
+  // G channels at a time, every tap load of a group in flight before the
+  // first is used: all C of them when the count is fixed, else one
+  constexpr int G = C > 0 ? C : 1;
+  for (int ch0 = 0; ch0 < (C > 0 ? C : c); ch0 += G) {
+    float v[G][kTileSteps][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int k = 0; k < kTileSteps; ++k) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          v[g][k][t] = tap_value(src + (ch0 + g) * ps.c, o[k][t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int k = 0; k < kTileSteps; ++k) {
+        finish(dst + (ch0 + g) * plane, k, v[g][k]);
+      }
+    }
   }
 }
 
-template <typename TI>
-int launch(const void* planes, const void* sy, const void* sx, void* out,
-           int n, int s, int c, int h, int w, const int64_t* st,
-           void* stream) {
-  const int64_t total = (int64_t)n * s * s * h * w;
-  if (total == 0) return 0;
-  const unsigned int blocks = (unsigned int)((total + kThreads - 1) / kThreads);
-  warp_phases_kernel<TI><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const TI*)planes, (const float*)sy, (const float*)sx, (TI*)out, n, s,
-      c, h, w, PlaneStrides{st[0], st[1], st[2], st[3], st[4], st[5]},
-      strides_from(st + 6), strides_from(st + 10));
+template <typename TI, int S, int C>
+int launch_kernel(const int64_t* a) {
+  const int n = (int)a[4], c = (int)a[6], h = (int)a[7], w = (int)a[8];
+  constexpr int kTileW = 32 / S * kTileSteps;
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileRows - 1) / kTileRows,
+                  n * S);
+  warp_phases_kernel<TI, S, C><<<grid, dim3(32, kTileRows), 0,
+                                 arg_ptr<CUstream_st>(a, 23)>>>(
+      arg_ptr<const TI>(a, 0), arg_ptr<const float>(a, 1),
+      arg_ptr<const float>(a, 2), arg_ptr<TI>(a, 3), c, h, w,
+      PlaneStrides{a[9], (int)a[10], (int)a[11], (int)a[12], (int)a[13],
+                   (int)a[14]},
+      strides_from(a + 15), strides_from(a + 19));
   return (int)cudaGetLastError();
+}
+
+// RGB planes (the packed16 path) take the kernel with the channels
+// unrolled; any other count loops over them
+template <typename TI, int S>
+int launch_scale(const int64_t* a) {
+  return a[6] == 3 ? launch_kernel<TI, S, 3>(a) : launch_kernel<TI, S, 0>(a);
+}
+
+template <typename TI>
+int launch(const int64_t* a) {
+  if (a[4] * a[6] * a[7] * a[8] == 0) return 0;
+  switch (a[5]) {
+    case 2:
+      return launch_scale<TI, 2>(a);
+    case 4:
+      return launch_scale<TI, 4>(a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C entry points, one per planes dtype; the coordinates are always
-// f32. `strides` holds 14 element strides: planes as (n, py, px, c, i, j),
-// then sy and sx as (n, q, i, j). out is contiguous (n, s*s, c, h, w).
-// Returns cudaGetLastError() after the launch.
-#define TECOGAN_PHASES_ENTRY(NAME, TI)                                        \
-  extern "C" int NAME(const void* planes, const void* sy, const void* sx,    \
-                      void* out, int n, int s, int c, int h, int w,          \
-                      const int64_t* strides, void* stream) {                \
-    return launch<TI>(planes, sy, sx, out, n, s, c, h, w, strides, stream);   \
-  }
+// f32. Each takes one int64 array: (planes, sy, sx, out, n, s, c, h, w,
+// 14 element strides: planes as (n, py, px, c, i, j), then sy and sx as
+// (n, q, i, j), stream). s is 2 or 4. out is contiguous (n, s*s, c, h, w).
+// The wrapper checks the grid limits and the 32-bit offsets. Returns
+// cudaGetLastError() after the launch.
+#define TECOGAN_PHASES_ENTRY(NAME, TI) \
+  extern "C" int NAME(const int64_t* args) { return launch<TI>(args); }
 
 TECOGAN_PHASES_ENTRY(tecogan_warp_phases_f32, float)
 TECOGAN_PHASES_ENTRY(tecogan_warp_phases_bf16, __nv_bfloat16)

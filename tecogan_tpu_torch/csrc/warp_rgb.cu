@@ -57,29 +57,25 @@ __global__ void warp_rgb_kernel(const TI* __restrict__ x,
 }
 
 template <typename TI, typename TF>
-int launch(const void* x, const void* flow, void* out, int n, int c, int H,
-           int W, const int64_t* strides, void* stream) {
+int launch(const int64_t* a) {
+  const int n = (int)a[3], c = (int)a[4], H = (int)a[5], W = (int)a[6];
   if ((int64_t)n * H * W == 0) return 0;
   warp_rgb_kernel<TI, TF><<<blocks_for(n, H, W), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const TI*)x, (const TF*)flow, (TI*)out, n, c, H, W,
-      strides_from(strides), strides_from(strides + 4),
-      strides_from(strides + 8));
+                            arg_ptr<CUstream_st>(a, 19)>>>(
+      arg_ptr<const TI>(a, 0), arg_ptr<const TF>(a, 1), arg_ptr<TI>(a, 2), n,
+      c, H, W, strides_from(a + 7), strides_from(a + 11),
+      strides_from(a + 15));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points, one per (image dtype, flow dtype). `strides` is a
-// host array of 12 element strides: the image's and the output's in
-// (n, c, H, W) order, then the flow's in (n, H, W, 2) order. Returns
-// cudaGetLastError() after the launch.
-#define TECOGAN_WARP_RGB_ENTRY(NAME, TI, TF)                                 \
-  extern "C" int NAME(const void* x, const void* flow, void* out, int n,     \
-                      int c, int H, int W, const int64_t* strides,           \
-                      void* stream) {                                        \
-    return launch<TI, TF>(x, flow, out, n, c, H, W, strides, stream);        \
-  }
+// Plain C entry points, one per (image dtype, flow dtype), each taking
+// one int64 array: (x, flow, out, n, c, H, W, 12 element strides: the
+// image's and the output's in (n, c, H, W) order, then the flow's in
+// (n, H, W, 2) order, stream). Returns cudaGetLastError() after the launch.
+#define TECOGAN_WARP_RGB_ENTRY(NAME, TI, TF) \
+  extern "C" int NAME(const int64_t* args) { return launch<TI, TF>(args); }
 
 TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_f32_f32, float, float)
 TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_f32_bf16, float, __nv_bfloat16)

@@ -107,50 +107,45 @@ __global__ void warp_dflow_kernel(const TX* __restrict__ g,
 }
 
 template <typename TG, typename TF>
-int launch_dimage(const void* g, const void* flow, void* out, int n, int c,
-                  int H, int W, const int64_t* strides, void* stream) {
+int launch_dimage(const int64_t* a) {
+  const int n = (int)a[3], c = (int)a[4], H = (int)a[5], W = (int)a[6];
   if ((int64_t)n * H * W == 0) return 0;
   warp_dimage_kernel<TG, TF><<<blocks_for(n, H, W), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-      (const TG*)g, (const TF*)flow, (float*)out, n, c, H, W,
-      strides_from(strides), strides_from(strides + 4),
-      strides_from(strides + 8));
+                               arg_ptr<CUstream_st>(a, 19)>>>(
+      arg_ptr<const TG>(a, 0), arg_ptr<const TF>(a, 1), arg_ptr<float>(a, 2),
+      n, c, H, W, strides_from(a + 7), strides_from(a + 11),
+      strides_from(a + 15));
   return (int)cudaGetLastError();
 }
 
 template <typename TX, typename TF>
-int launch_dflow(const void* g, const void* x, const void* flow, void* out,
-                 int n, int c, int H, int W, const int64_t* strides,
-                 void* stream) {
+int launch_dflow(const int64_t* a) {
+  const int n = (int)a[4], c = (int)a[5], H = (int)a[6], W = (int)a[7];
   if ((int64_t)n * H * W == 0) return 0;
   warp_dflow_kernel<TX, TF><<<blocks_for(n, H, W), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (const TX*)g, (const TX*)x, (const TF*)flow, (float*)out, n, c, H, W,
-      strides_from(strides), strides_from(strides + 4),
-      strides_from(strides + 8));
+                              arg_ptr<CUstream_st>(a, 20)>>>(
+      arg_ptr<const TX>(a, 0), arg_ptr<const TX>(a, 1),
+      arg_ptr<const TF>(a, 2), arg_ptr<float>(a, 3), n, c, H, W,
+      strides_from(a + 8), strides_from(a + 12), strides_from(a + 16));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points, one per (image/cotangent dtype, flow dtype).
-// `strides` is a host array of 12 element strides. K3: g's and the fp32
-// output's in (n, c, H, W) order, then the flow's in (n, H, W, 2) order;
-// the output must be zeroed by the caller. K4: g's and x's in (n, c, H, W)
-// order, then the flow's; the output is a contiguous fp32 (n, H, W, 2).
-// Each returns cudaGetLastError() after the launch.
-#define TECOGAN_DIMAGE_ENTRY(NAME, TG, TF)                                   \
-  extern "C" int NAME(const void* g, const void* flow, void* out, int n,     \
-                      int c, int H, int W, const int64_t* strides,           \
-                      void* stream) {                                        \
-    return launch_dimage<TG, TF>(g, flow, out, n, c, H, W, strides, stream); \
+// Plain C entry points, one per (image/cotangent dtype, flow dtype), each
+// taking one int64 array. K3: (g, flow, out, n, c, H, W, 12 element
+// strides: g's and the fp32 output's in (n, c, H, W) order, then the
+// flow's in (n, H, W, 2) order, stream); the output must be zeroed by the
+// caller. K4: (g, x, flow, out, n, c, H, W, g's, x's and the flow's
+// strides, stream); the output is a contiguous fp32 (n, H, W, 2). Each
+// returns cudaGetLastError() after the launch.
+#define TECOGAN_DIMAGE_ENTRY(NAME, TG, TF)    \
+  extern "C" int NAME(const int64_t* args) { \
+    return launch_dimage<TG, TF>(args);      \
   }
-#define TECOGAN_DFLOW_ENTRY(NAME, TX, TF)                                    \
-  extern "C" int NAME(const void* g, const void* x, const void* flow,        \
-                      void* out, int n, int c, int H, int W,                 \
-                      const int64_t* strides, void* stream) {                \
-    return launch_dflow<TX, TF>(g, x, flow, out, n, c, H, W, strides,        \
-                                stream);                                     \
+#define TECOGAN_DFLOW_ENTRY(NAME, TX, TF)     \
+  extern "C" int NAME(const int64_t* args) { \
+    return launch_dflow<TX, TF>(args);       \
   }
 
 TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_f32_f32, float, float)

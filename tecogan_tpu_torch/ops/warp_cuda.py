@@ -10,10 +10,12 @@ forward of every training warp. Both compute
 clip(j + fx, 0, W-1))``: clamp, then floor (grid_sample's border padding
 with align_corners=True). Coordinates, tap weights and the accumulation are
 fp32; the output is in the image's dtype. The flow arrives in its
-producer's dtype (fp32 or bf16) and is read as fp32. Each kernel
-(``csrc/warp_planes.cu``, ``csrc/warp_rgb.cu``) is one thread per output
-pixel looping over channels; they move about 16 B per pixel at bf16, so
-they are bound by memory traffic and, at small frames, by the launch.
+producer's dtype (fp32 or bf16) and is read as fp32. K1
+(``csrc/warp_planes.cu``) runs on the row tiles of ``tile_plan``: each
+warp one output row, each lane ``TILE_STEPS`` pixels 32 columns apart; K2
+(``csrc/warp_rgb.cu``) is one thread per output pixel. Both loop over the
+channels and move about 16 B per pixel at bf16, so they are bound by
+memory traffic and, at small frames, by the launch.
 
 The wrappers dispatch on where their tensors lie: CPU tensors go to
 ``warp_planes_reference``, CUDA tensors to the kernel. Anything else
@@ -24,18 +26,99 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
+import numpy as np
 import torch
 
-__all__ = ["warp_planes", "warp_planes_reference", "warp_rgb"]
+__all__ = ["tile_pixels", "tile_plan", "warp_planes", "warp_planes_reference",
+           "warp_rgb"]
 
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# (planes, flow, out, n, c, H, W, band, band_valid, flow strides, stream)
-_PLANES_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6
-                    + (ctypes.c_int64,) * 4 + (ctypes.c_void_p,))
-# (x, flow, out, n, c, H, W, strides[12], stream)
-_RGB_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
-                 + (ctypes.c_void_p,) * 2)
+# K1's C entry point for each (planes, flow) dtype pair
+_PLANES_ENTRY = {(a, b): f"tecogan_warp_planes_{ta}_{tb}"
+                 for a, ta in _DTYPE_TAG.items()
+                 for b, tb in _DTYPE_TAG.items()}
+
+# the row tiles of csrc/warp_common.cuh (kTileRows, kTileSteps)
+TILE_ROWS, TILE_STEPS = 4, 2
+_GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y and gridDim.z
+INT32_MAX = 2 ** 31 - 1
+
+
+def tile_plan(images: int, rows: int, cols: int,
+              lanes_per_col: int = 1) -> tuple[tuple, tuple]:
+    """The (grid, block) of K1 and K5, as their C launchers compute it, for
+    ``images`` x ``rows`` x ``cols`` output pixels: a block is
+    ``TILE_ROWS`` warps, one row each, and each lane takes ``TILE_STEPS``
+    pixels; ``lanes_per_col`` neighbouring lanes share an output column
+    (K5: its s px phases), so a block spans ``32 // lanes_per_col *
+    TILE_STEPS`` columns. Raises ValueError past CUDA's grid limits."""
+    tile_cols = 32 // lanes_per_col * TILE_STEPS
+    grid = (-(-cols // tile_cols), -(-rows // TILE_ROWS), images)
+    if grid[1] > _GRID_YZ_MAX or grid[2] > _GRID_YZ_MAX:
+        raise ValueError(f"{images} images of {rows} rows exceed the CUDA "
+                         f"grid (at most {_GRID_YZ_MAX} images and "
+                         f"{_GRID_YZ_MAX * TILE_ROWS} rows)")
+    return grid, (32, TILE_ROWS)
+
+
+def tile_pixels(images: int, rows: int, cols: int,
+                lanes_per_col: int = 1) -> tuple:
+    """Where ``tile_plan``'s launch puts each thread's pixels, by the
+    kernels' index formulas: lane l of warp y of block (bx, by, bz) takes
+    image bz, row by * TILE_ROWS + y and, at step k, column
+    l // lanes_per_col + k * 32 // lanes_per_col of the block's tile.
+    Returns numpy arrays (image, row, column, lane, block row), each indexed
+    (bx, by, bz, warp, lane, step); pixels past the edge are included (the
+    kernels store nothing there)."""
+    (gx, gy, gz), (lanes, warps) = tile_plan(images, rows, cols,
+                                             lanes_per_col)
+    bx, by, bz, wy, lane, k = np.meshgrid(
+        np.arange(gx), np.arange(gy), np.arange(gz), np.arange(warps),
+        np.arange(lanes), np.arange(TILE_STEPS), indexing="ij")
+    col_lanes = lanes // lanes_per_col
+    col = bx * col_lanes * TILE_STEPS + lane // lanes_per_col + col_lanes * k
+    return bz, by * TILE_ROWS + wy, col, lane, by
+
+
+@functools.lru_cache(maxsize=256)
+def check_warp_shapes(name: str, shape: torch.Size, flow_shape: torch.Size,
+                      *more: torch.Size) -> None:
+    """Raise unless the image is (n, c, H, W), the flow (n, H, W, 2) and
+    every shape in ``more`` the image's. Cached: a path checks the same
+    shapes every frame."""
+    if len(shape) != 4:
+        raise ValueError(f"{name}: the image must be (n, c, H, W), got "
+                         f"{tuple(shape)}")
+    n, _, h, w = shape
+    if flow_shape != (n, h, w, 2):
+        raise ValueError(f"{name}: flow must be (n, H, W, 2) = "
+                         f"{(n, h, w, 2)}, got {tuple(flow_shape)}")
+    for other in more:
+        if other != shape:
+            raise ValueError(f"{name}: shapes {tuple(other)} and "
+                             f"{tuple(shape)} differ")
+
+
+@functools.lru_cache(maxsize=256)
+def _planes_plan(shape: torch.Size, flow_shape: torch.Size,
+                 flow_strides: tuple, band: int, band_valid: int) -> None:
+    """Raise unless K1 can take planes of ``shape`` and a flow of
+    ``flow_shape`` and ``flow_strides``: the shapes of
+    ``check_warp_shapes``, a valid band geometry, a grid that fits, and
+    offsets that fit the kernel's 32 bits (taps within an image, flow
+    values within a row). Cached: a path calls it with the same arguments
+    every frame."""
+    check_warp_shapes("warp_planes", shape, flow_shape)
+    n, c, h, w = shape
+    check_band(h, band, band_valid)
+    tile_plan(n, h, w)
+    if (c * h * w > INT32_MAX
+            or (w - 1) * flow_strides[2] + flow_strides[3] > INT32_MAX):
+        raise ValueError(f"warp_planes: an image of {c}x{h}x{w} or a flow "
+                         f"with strides {flow_strides} exceeds the kernel's "
+                         f"32-bit offsets")
 
 
 def bilinear_taps(flow: torch.Tensor, h: int, w: int, band: int = 0,
@@ -114,59 +197,66 @@ def all_on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def check_cuda_warp_args(name: str, img: torch.Tensor, flow: torch.Tensor,
-                         *more: torch.Tensor) -> None:
-    """Raise unless every tensor lies on one CUDA device in f32/bf16, the
-    image is (n, c, H, W), the flow (n, H, W, 2) and ``more`` the image's
-    shape."""
-    devs = [t.device for t in (img, flow, *more)]
-    if devs[0].type != "cuda" or any(d != devs[0] for d in devs):
+def cuda_index(name: str, *tensors: torch.Tensor) -> int:
+    """The index of the one CUDA device all ``tensors`` lie on; raise
+    ValueError unless there is one."""
+    index = tensors[0].get_device()
+    if not tensors[0].is_cuda or any(t.get_device() != index
+                                     for t in tensors[1:]):
+        devs = [t.device for t in tensors]
         raise ValueError(
             f"{name} needs all tensors on one CUDA device (or all on the "
             f"CPU); got {', '.join(map(str, devs))}")
-    dts = [t.dtype for t in (img, flow, *more)]
-    if any(d not in _DTYPE_TAG for d in dts):
+    return index
+
+
+def check_cuda_warp_args(name: str, img: torch.Tensor, flow: torch.Tensor,
+                         *more: torch.Tensor) -> int:
+    """Raise unless every tensor lies on one CUDA device in f32/bf16 and
+    their shapes pass ``check_warp_shapes``; return the device's index."""
+    index = cuda_index(name, img, flow, *more)
+    if (img.dtype not in _DTYPE_TAG or flow.dtype not in _DTYPE_TAG
+            or any(t.dtype not in _DTYPE_TAG for t in more)):
+        dts = [t.dtype for t in (img, flow, *more)]
         raise TypeError(f"{name} takes float32/bfloat16, got {dts}")
-    if img.dim() != 4:
-        raise ValueError(f"{name}: the image must be (n, c, H, W), got "
-                         f"{tuple(img.shape)}")
-    n, _, h, w = img.shape
-    if tuple(flow.shape) != (n, h, w, 2):
-        raise ValueError(f"{name}: flow must be (n, H, W, 2) = "
-                         f"{(n, h, w, 2)}, got {tuple(flow.shape)}")
-    for t in more:
-        if t.shape != img.shape:
-            raise ValueError(f"{name}: shapes {tuple(t.shape)} and "
-                             f"{tuple(img.shape)} differ")
+    check_warp_shapes(name, img.shape, flow.shape, *(t.shape for t in more))
+    return index
 
 
 @functools.cache
-def _entry_point(name: str, argtypes: tuple):
-    """The library's C function ``name`` with its signature declared
-    (``c_void_p`` keeps 64-bit pointers and the stream intact)."""
+def _entry_point(name: str):
+    """The library's C function ``name``: it takes one int64 array of
+    arguments and returns a CUDA error code."""
     from ..kernel_build import load_library
 
     fn = getattr(load_library(), name)
-    fn.argtypes = argtypes
+    fn.argtypes = (ctypes.c_void_p,)
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(name: str, argtypes: tuple, device: torch.device, *args) -> None:
-    """Call the C entry point ``name`` on ``device``'s current stream; raise
-    if it reports a CUDA error."""
-    fn = _entry_point(name, argtypes)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+_ARGS = threading.local()
+
+
+def launch(name: str, index: int, *args: int) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of CUDA device ``index`` packed in one int64 array (this thread's,
+    reused call to call: the entry point reads it before it returns), with
+    that device current; raise if it reports a CUDA error."""
+    buf = getattr(_ARGS, "buf", None)
+    if buf is None:
+        buf = _ARGS.buf = (ctypes.c_int64 * 32)()
+    buf[:len(args)] = args
+    # the stream's handle, without building a torch.cuda.Stream
+    buf[len(args)] = torch._C._cuda_getCurrentRawStream(index)
+    fn = _entry_point(name)
+    if index == torch.cuda.current_device():
+        err = fn(ctypes.addressof(buf))
+    else:
+        with torch.cuda.device(index):
+            err = fn(ctypes.addressof(buf))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
-def strides_arg(*tensors: torch.Tensor):
-    """The tensors' element strides, concatenated, as a C int64 array."""
-    vals = [s for t in tensors for s in t.stride()]
-    return (ctypes.c_int64 * len(vals))(*vals)
 
 
 def warp_planes(planes: torch.Tensor, flow: torch.Tensor, band: int = 0,
@@ -186,19 +276,21 @@ def warp_planes(planes: torch.Tensor, flow: torch.Tensor, band: int = 0,
     ``warp_planes.launches`` counts kernel launches, and
     ``warp_planes.band_launches`` those of them in band mode.
     """
-    if all_on_cpu(planes, flow):
+    if not planes.is_cuda and all_on_cpu(planes, flow):
         return warp_planes_reference(planes, flow, band, band_valid)
-    check_cuda_warp_args("warp_planes", planes, flow)
-    check_band(planes.shape[2], band, band_valid)
+    index = cuda_index("warp_planes", planes, flow)
+    name = _PLANES_ENTRY.get((planes.dtype, flow.dtype))
+    if name is None:
+        raise TypeError(f"warp_planes takes float32/bfloat16, got "
+                        f"{[planes.dtype, flow.dtype]}")
+    fs = flow.stride()
+    _planes_plan(planes.shape, flow.shape, fs, band, band_valid)
     if not planes.is_contiguous():
         raise ValueError("warp_planes: planes must be contiguous NCHW")
-    name = (f"tecogan_warp_planes_{_DTYPE_TAG[planes.dtype]}_"
-            f"{_DTYPE_TAG[flow.dtype]}")
     n, c, h, w = planes.shape
     out = torch.empty_like(planes)
-    launch(name, _PLANES_ARGTYPES, planes.device, planes.data_ptr(),
-           flow.data_ptr(), out.data_ptr(), n, c, h, w, band, band_valid,
-           *flow.stride())
+    launch(name, index, planes.data_ptr(), flow.data_ptr(), out.data_ptr(),
+           n, c, h, w, band, band_valid, *fs)
     warp_planes.launches += 1
     warp_planes.band_launches += bool(band)
     return out
@@ -215,12 +307,12 @@ def warp_rgb(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """
     if all_on_cpu(x, flow):
         return warp_planes_reference(x, flow)
-    check_cuda_warp_args("warp_rgb", x, flow)
+    index = check_cuda_warp_args("warp_rgb", x, flow)
     name = f"tecogan_warp_rgb_{_DTYPE_TAG[x.dtype]}_{_DTYPE_TAG[flow.dtype]}"
     n, c, h, w = x.shape
     out = torch.empty_like(x)
-    launch(name, _RGB_ARGTYPES, x.device, x.data_ptr(), flow.data_ptr(),
-           out.data_ptr(), n, c, h, w, strides_arg(x, out, flow))
+    launch(name, index, x.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c,
+           h, w, *x.stride(), *out.stride(), *flow.stride())
     warp_rgb.launches += 1
     return out
 

@@ -23,24 +23,13 @@ anything else raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .warp_cuda import (_DTYPE_TAG, all_on_cpu, bilinear_taps,
-                        check_cuda_warp_args, gather_tap, launch, strides_arg,
-                        warp_rgb)
+                        check_cuda_warp_args, gather_tap, launch, warp_rgb)
 
 __all__ = ["backward_warp_diff", "warp_dimage", "warp_dimage_reference",
            "warp_dflow", "warp_dflow_reference"]
-
-# (g, flow, out, n, c, H, W, strides[12], stream)
-_DIMAGE_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
-                    + (ctypes.c_void_p,) * 2)
-# (g, x, flow, out, n, c, H, W, strides[12], stream)
-_DFLOW_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
-                   + (ctypes.c_void_p,) * 2)
-
 
 def warp_dimage_reference(g: torch.Tensor, flow: torch.Tensor,
                           x_dtype: torch.dtype) -> torch.Tensor:
@@ -94,7 +83,7 @@ def warp_dimage(g: torch.Tensor, flow: torch.Tensor,
     ``warp_dimage.launches`` counts kernel launches."""
     if all_on_cpu(g, flow):
         return warp_dimage_reference(g, flow, x_dtype)
-    check_cuda_warp_args("warp_dimage", g, flow)
+    index = check_cuda_warp_args("warp_dimage", g, flow)
     if x_dtype not in _DTYPE_TAG:
         raise TypeError(f"warp_dimage: x_dtype must be float32/bfloat16, "
                         f"got {x_dtype}")
@@ -102,8 +91,8 @@ def warp_dimage(g: torch.Tensor, flow: torch.Tensor,
             f"{_DTYPE_TAG[flow.dtype]}")
     n, c, h, w = g.shape
     out = torch.zeros_like(g, dtype=torch.float32)
-    launch(name, _DIMAGE_ARGTYPES, g.device, g.data_ptr(), flow.data_ptr(),
-           out.data_ptr(), n, c, h, w, strides_arg(g, out, flow))
+    launch(name, index, g.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c,
+           h, w, *g.stride(), *out.stride(), *flow.stride())
     warp_dimage.launches += 1
     return out.to(x_dtype)
 
@@ -117,7 +106,7 @@ def warp_dflow(g: torch.Tensor, x: torch.Tensor,
     launches."""
     if all_on_cpu(g, x, flow):
         return warp_dflow_reference(g, x, flow)
-    check_cuda_warp_args("warp_dflow", x, flow, g)
+    index = check_cuda_warp_args("warp_dflow", x, flow, g)
     if g.dtype != x.dtype:
         raise TypeError(f"warp_dflow: g ({g.dtype}) and x ({x.dtype}) "
                         f"must share a dtype")
@@ -125,9 +114,9 @@ def warp_dflow(g: torch.Tensor, x: torch.Tensor,
             f"{_DTYPE_TAG[flow.dtype]}")
     n, c, h, w = x.shape
     out = torch.empty((n, h, w, 2), dtype=torch.float32, device=x.device)
-    launch(name, _DFLOW_ARGTYPES, x.device, g.data_ptr(), x.data_ptr(),
-           flow.data_ptr(), out.data_ptr(), n, c, h, w,
-           strides_arg(g, x, flow))
+    launch(name, index, g.data_ptr(), x.data_ptr(), flow.data_ptr(),
+           out.data_ptr(), n, c, h, w, *g.stride(), *x.stride(),
+           *flow.stride())
     warp_dflow.launches += 1
     return out.to(flow.dtype)
 

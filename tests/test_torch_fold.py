@@ -85,6 +85,26 @@ def test_band_mode_is_per_stream_warp(rng):
                                warp_planes_reference(p, f), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("streams,band,valid", [(3, 34, 30), (4, 3, 2),
+                                                (6, 1, 1)])
+def test_band_mode_with_straddling_tiles_is_per_stream_warp(rng, streams,
+                                                            band, valid):
+    """The card checks' band geometries that the TPU kernel (32-row bands)
+    cannot take and whose CUDA row tiles straddle two bands or hold
+    several: the plain band mode still warps each band like its valid rows
+    alone."""
+    planes = rng.standard_normal((1, 3, streams * band, 40)).astype(
+        np.float32)
+    flow = (rng.standard_normal((1, streams * band, 40, 2)) * 6.0).astype(
+        np.float32)
+    p, f = torch.from_numpy(planes), torch.from_numpy(flow)
+    got = warp_planes_reference(p, f, band=band, band_valid=valid)
+    for b in range(streams):
+        rows = slice(b * band, b * band + valid)
+        alone = warp_planes_reference(p[:, :, rows], f[:, rows])
+        torch.testing.assert_close(got[:, :, rows], alone, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("band,valid", [(7, 3), (8, 0), (8, 9)])
 def test_band_mode_rejects_bad_geometry(band, valid):
     planes = torch.zeros(1, 3, 16, 8)

@@ -1,7 +1,10 @@
 """Port parity for the warp (K1): ``warp_planes_reference`` — the plain
 version the CUDA kernel is held against on the card — against the TPU
-kernel in interpret mode and the gather warp, plus the wrapper's dispatch
-rules on the CPU."""
+kernel in interpret mode and the gather warp, the wrapper's dispatch rules
+on the CPU, and the kernel's launch plan (``tile_plan``) at the paths' and
+the card checks' shapes."""
+
+import re
 
 import numpy as np
 import pytest
@@ -15,12 +18,16 @@ from tecogan_tpu_torch import kernel_build
 from tecogan_tpu_torch.ops import warp_cuda
 from tecogan_tpu_torch.ops.warp_cuda import warp_planes, warp_planes_reference
 
-# the shapes of tests/test_warp_pallas.py, as (n, c, h, w)
+# the shapes of tests/test_warp_pallas.py, as (n, c, h, w), and ragged
+# tiles of the CUDA kernel (a width off its 64-column tile and its 32-lane
+# warp, heights off its 4-row tile, one channel)
 _CASES = [
     ((1, 3, 24, 40), 6.0),
     ((2, 3, 16, 130), 30.0),
     ((1, 1, 9, 257), 300.0),
     ((1, 3, 64, 128), 80.0),
+    ((1, 3, 13, 200), 30.0),
+    ((2, 1, 5, 33), 30.0),
 ]
 
 
@@ -149,3 +156,72 @@ def test_kernel_source_exports_every_dtype_pair():
     for a in warp_cuda._DTYPE_TAG.values():
         for b in warp_cuda._DTYPE_TAG.values():
             assert f"TECOGAN_WARP_ENTRY(tecogan_warp_planes_{a}_{b}," in text
+
+
+# K1's shapes: the main path's frame, 4 folded streams, the card checks'
+# shapes (1080p, ragged tiles)
+_PLAN_SHAPES = [(1, 3, 536, 1280), (1, 3, 2176, 1280), (1, 3, 1080, 1920),
+                (2, 3, 16, 130), (1, 1, 9, 257), (2, 1, 5, 33)]
+
+
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_tile_plan_covers_every_pixel_once(shape):
+    """K1's grid and index formulas write every output pixel exactly once,
+    a warp's lanes take 32 neighbouring columns of one row, and every
+    offset the kernel keeps in 32 bits fits."""
+    n, c, h, w = shape
+    assert warp_cuda.tile_plan(n, h, w)[1] == (32, warp_cuda.TILE_ROWS)
+    b, i, j, lane, _ = warp_cuda.tile_pixels(n, h, w)
+    inside = (i < h) & (j < w)
+    hits = np.zeros((n, h, w), np.int64)
+    np.add.at(hits, (b[inside], i[inside], j[inside]), 1)
+    assert (hits == 1).all()
+    # lanes of one warp step: one row, columns j0 .. j0 + 31
+    assert (i == i[..., :1, :]).all()
+    assert (j - j[..., :1, :] == lane - lane[..., :1, :]).all()
+    # the paths' flow: the (n, H, W, 2) view of an NCHW tensor
+    warp_cuda._planes_plan(torch.Size(shape), torch.Size((n, h, w, 2)),
+                           (2 * h * w, w, 1, h * w), 0, 0)
+
+
+def test_tile_plan_rejects_what_the_kernel_cannot_index():
+    with pytest.raises(ValueError, match="grid"):
+        warp_cuda.tile_plan(70000, 8, 8)
+    with pytest.raises(ValueError, match="grid"):
+        warp_cuda.tile_plan(1, 600000, 8)
+    with pytest.raises(ValueError, match="32-bit"):
+        warp_cuda._planes_plan(torch.Size((1, 3, 30000, 30000)),
+                               torch.Size((1, 30000, 30000, 2)),
+                               (1800000000, 60000, 2, 1), 0, 0)
+    with pytest.raises(ValueError, match="band"):
+        warp_cuda._planes_plan(torch.Size((1, 3, 16, 8)),
+                               torch.Size((1, 16, 8, 2)), (256, 16, 2, 1), 7,
+                               3)
+
+
+@pytest.mark.parametrize("h,band,valid", [(2176, 544, 536), (864, 288, 268),
+                                          (102, 34, 30), (12, 3, 2),
+                                          (6, 1, 1)])
+def test_band_row_from_tile_first_row(h, band, valid):
+    """Band mode takes row i's place in its band from its block's first row
+    (one remainder) and its offset in the block, subtracting band while the
+    block straddles bands; that is i mod band for every row."""
+    _, i, j, _, by = warp_cuda.tile_pixels(1, h, 64)
+    row = (by * warp_cuda.TILE_ROWS) % band + (i - by * warp_cuda.TILE_ROWS)
+    while (row >= band).any():
+        row = np.where(row >= band, row - band, row)
+    inside = i < h
+    np.testing.assert_array_equal(row[inside], i[inside] % band)
+    assert valid <= band
+
+
+def test_tile_constants_match_the_cuda_source():
+    """The plan's constants are the kernels' (csrc/warp_common.cuh), and
+    the kernels use no shared memory, so no launch needs more than the
+    default 48 KB or a cudaFuncSetAttribute call."""
+    text = (kernel_build.CSRC_DIR / "warp_common.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert int(consts["kTileRows"]) == warp_cuda.TILE_ROWS
+    assert int(consts["kTileSteps"]) == warp_cuda.TILE_STEPS
+    for src in ("warp_planes.cu", "warp_phases.cu", "warp_common.cuh"):
+        assert "__shared__" not in (kernel_build.CSRC_DIR / src).read_text()

@@ -3,6 +3,8 @@ plain versions the CUDA kernels are held against on the card, and the
 autograd ``backward_warp_diff``, against the TPU kernels in interpret mode
 and ``jax.vjp`` of the JAX ``backward_warp_diff`` (CPU)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,8 @@ from tecogan_tpu.ops.warp_vjp import _dflow, _dimage
 from tecogan_tpu.ops.warp_vjp import backward_warp_diff as jwarp_diff
 from tecogan_tpu_torch import kernel_build
 from tecogan_tpu_torch.ops import warp_cuda, warp_vjp
-from tecogan_tpu_torch.ops.warp_cuda import warp_planes_reference, warp_rgb
+from tecogan_tpu_torch.ops.warp_cuda import (warp_planes,
+                                             warp_planes_reference, warp_rgb)
 from tecogan_tpu_torch.ops.warp_vjp import (backward_warp_diff, warp_dflow,
                                             warp_dflow_reference,
                                             warp_dimage,
@@ -210,3 +213,62 @@ def test_kernel_sources_export_every_dtype_pair():
             assert f"TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_{a}_{b}," in rgb
             assert f"TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_{a}_{b}," in vjp
             assert f"TECOGAN_DFLOW_ENTRY(tecogan_warp_dflow_{a}_{b}," in vjp
+
+
+# each kernel's C launcher that reads the packed arguments: (source, name)
+_LAUNCHERS = {"K1": ("warp_planes.cu", "launch_kernel"),
+              "K1 band": ("warp_planes.cu", "launch_kernel"),
+              "K2": ("warp_rgb.cu", "launch"),
+              "K3": ("warp_vjp.cu", "launch_dimage"),
+              "K4": ("warp_vjp.cu", "launch_dflow"),
+              "K5": ("warp_phases.cu", "launch_kernel")}
+
+
+@pytest.mark.parametrize("kernel", sorted(_LAUNCHERS))
+def test_wrappers_pack_what_the_c_launchers_read(monkeypatch, rng, kernel):
+    """Each wrapper hands its C entry point one int64 array: the stream
+    lands where the launcher reads it (``arg_ptr<CUstream_st>(a, k)``),
+    and every ``strides_from(a + k)`` reads the element strides of the
+    tensor it stands for. The wrappers run on CPU tensors with the device
+    checks and the launch stubbed out."""
+    from tecogan_tpu_torch.ops import warp_phases as wp
+
+    calls = []
+    for mod in (warp_cuda, warp_vjp, wp):
+        monkeypatch.setattr(mod, "all_on_cpu", lambda *t: False)
+        monkeypatch.setattr(mod, "launch",
+                            lambda name, index, *a: calls.append(a))
+    monkeypatch.setattr(warp_cuda, "cuda_index", lambda name, *t: 0)
+    monkeypatch.setattr(wp, "cuda_index", lambda name, *t: 0)
+
+    x = torch.randn(2, 3, 8, 12)
+    g = torch.randn(2, 3, 8, 12)
+    flow = torch.randn(2, 2, 8, 12).permute(0, 2, 3, 1)  # an NCHW view
+    sy = torch.rand(1, 4, 4, 6)
+    sx = torch.rand(1, 4, 6, 4).transpose(2, 3)
+    channels_last = x.contiguous(memory_format=torch.channels_last)
+    f32 = torch.float32
+    run, strides = {
+        "K1": (lambda: warp_planes(x, flow), [flow]),
+        "K1 band": (lambda: warp_planes(x, flow, 4, 3), [flow]),
+        "K2": (lambda: warp_rgb(channels_last, flow),
+               [channels_last, channels_last, flow]),
+        "K3": (lambda: warp_dimage(g, flow, torch.bfloat16),
+               [g, torch.zeros_like(g, dtype=f32), flow]),
+        "K4": (lambda: warp_dflow(g, x, flow), [g, x, flow]),
+        "K5": (lambda: wp.warp_phases(
+            wp.phase_planes(torch.randn(1, 3, 8, 12), 2), sy, sx, 2),
+            [sy, sx]),
+    }[kernel]
+    run()
+    (args,) = calls
+    source, name = _LAUNCHERS[kernel]
+    text = (kernel_build.CSRC_DIR / source).read_text()
+    body = re.search(rf"\nint {name}\(const int64_t\* a\) \{{(.*?)\n\}}",
+                     text, re.S).group(1)
+    (stream,) = re.findall(r"arg_ptr<CUstream_st>\(a, (\d+)\)", body)
+    assert len(args) == int(stream)
+    offsets = [int(k) for k in re.findall(r"strides_from\(a \+ (\d+)\)",
+                                          body)]
+    assert [tuple(args[k:k + 4]) for k in offsets] == [
+        t.stride() for t in strides]
