@@ -32,9 +32,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
 7. inference on the card against the CPU plain path, same weights and
    inputs, default and packed16;
 8. K2, K3 and K4 (the training warp and its two adjoints) against their
-   plain versions at the training shapes and the TPU kernel test's shapes,
-   image and flow in f32 and bf16, NCHW and channels_last, with their
-   times;
+   plain versions at the training shapes, the TPU kernel test's shapes and
+   the 536x1280 HR frame, image and flow in f32 and bf16, NCHW and
+   channels_last: K2 and K3 bit for bit (K3 against its fixed-point plain
+   version, two launches bit-identical, and near the float64 adjoint), K3
+   also with g zero, tiny, subnormal and non-finite, and as one kernel
+   launch a call; with their times, and K2's and K3's two controls;
 9. the training path: a VSRModel built like the Vimeo FRVSR train.yml
    (nf=64, nb=10, 4x BD, batch 2 x 10 frames of 136^2 uint8 GT, bf16 mixed
    precision, remat) takes five steps; the K2/K3/K4 launch counts must be
@@ -596,16 +599,18 @@ def phase_k5(card):
 # three channels in fp32 in the kernel's order: rtol 1e-5, with an atol of
 # 1e-5 * max|ref| for terms that cancel; a bf16 flow gradient rounds two
 # such fp32 values, so it may differ by one bf16 ulp (2^-7 relative). K3
-# adds fp32 atomics in an order that changes from run to run; against a
-# float64 plain version: rtol 1e-4, with an atol of 1e-5 * max|ref|.
+# sums exact integers: bit for bit its fixed-point plain version, the same
+# bits in two launches, and against the float64 adjoint rtol 1e-4, with an
+# atol of 1e-5 * max|ref|.
 K4_RTOL, K4_ATOL_REL, K4_BF16_RTOL = 1e-5, 1e-5, 2.0 ** -7
 K3_RTOL, K3_ATOL_REL = 1e-4, 1e-5
 # the two training warps at full width: HR (batch 2, 128^2 GT crop) and the
 # warping loss's LR warp (2 x 9 frame pairs of 32^2)
 TRAIN_WARP_SHAPES = ((2, 3, 128, 128), (18, 3, 32, 32))
-# tests/test_warp_vjp.py's shapes, as (n, c, h, w)
+# tests/test_warp_vjp.py's shapes, as (n, c, h, w), and the HR frame of
+# inference, where K3's grid-stride loops take more than one pass
 VJP_TEST_SHAPES = ((2, 3, 32, 48), (1, 3, 17, 23), (2, 3, 40, 128),
-                   (1, 3, 64, 128))
+                   (1, 3, 64, 128), (1, 3, 536, 1280))
 
 
 def _vjp_flow(gen, dev, n, h, w, sigma):
@@ -637,7 +642,6 @@ def phase_k234(card):
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     err = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
-    k3_spread = 0.0
     n_cases = 0
     for shape in TRAIN_WARP_SHAPES + VJP_TEST_SHAPES:
         n, c, h, w = shape
@@ -670,21 +674,32 @@ def phase_k234(card):
                         _require(ok, f"K2 disagrees with its plain version: "
                                  f"{tag} max_abs_err={e:.3g}")
 
-                        # K3, in fp32 (the cast to the image dtype is plain
-                        # torch), twice for the run-to-run spread
+                        # K3 in fp32 twice (the same bits) and in the image
+                        # dtype, each bit for bit its fixed-point plain
+                        # version, and near the float64 adjoint
                         a = warp_dimage(g, flow, torch.float32)
                         b = warp_dimage(g, flow, torch.float32)
+                        low = warp_dimage(g, flow, dts[xd])
                         torch.cuda.synchronize()
+                        _require(torch.equal(a, b), f"K3 differs between "
+                                 f"two launches: {tag}")
+                        _require(
+                            torch.equal(a, warp_dimage_reference(
+                                g, flow, torch.float32))
+                            and torch.equal(low, warp_dimage_reference(
+                                g, flow, dts[xd]))
+                            and low.stride() == g.stride(),
+                            f"K3 differs from its fixed-point plain "
+                            f"version: {tag}")
                         ref = warp_dimage_reference(g.double(), flow,
                                                     torch.float64)
                         atol = K3_ATOL_REL * float(ref.abs().max())
                         e = float((a.double() - ref).abs().max())
                         err["K3"] = max(err["K3"], e)
-                        k3_spread = max(k3_spread, float((a - b).abs().max()))
                         _require(torch.allclose(a.double(), ref, rtol=K3_RTOL,
                                                 atol=atol),
-                                 f"K3 disagrees with its float64 plain "
-                                 f"version: {tag} max_abs_err={e:.3g}")
+                                 f"K3 disagrees with the float64 adjoint: "
+                                 f"{tag} max_abs_err={e:.3g}")
 
                         # K4
                         got = warp_dflow(g, x, flow)
@@ -705,10 +720,11 @@ def phase_k234(card):
     print(f"K2/K3/K4 against their plain versions: {n_cases} cases ok "
           f"(shapes {TRAIN_WARP_SHAPES + VJP_TEST_SHAPES}, sigma 6/30/300, "
           f"image and flow f32/bf16, NCHW and channels_last); max abs err "
-          f"K2 {err['K2']:.3g}, K3 (vs float64) {err['K3']:.3g}, K4 "
-          f"{err['K4']:.3g}")
-    print(f"K3 run-to-run max difference over two launches (fp32 atomics): "
-          f"{k3_spread:.3g}")
+          f"K2 {err['K2']:.3g}, K3 0 against its fixed-point plain version "
+          f"({err['K3']:.3g} against the float64 adjoint), K4 "
+          f"{err['K4']:.3g}; K3 run-to-run spread over two launches 0 in "
+          f"every case")
+    _k3_edge_cases(gen, dev)
 
     # the library calls: grid_sample with border padding for K2, and its
     # autograd backward, which gives the image and the grid gradients in
@@ -749,7 +765,77 @@ def phase_k234(card):
                              kern, plain, library, bound)
             if shape == TRAIN_WARP_SHAPES[0]:
                 out[name] = {**t, "max_abs_err": err[name]}
+        if shape == TRAIN_WARP_SHAPES[0]:
+            zero = torch.zeros_like(flow)
+            _controls(f"K2 {shape} zero flow", card,
+                      lambda: warp_rgb(x, zero),
+                      lambda: warp_planes_reference(x, zero), x)
+            _controls(f"K3 {shape} zero flow", card,
+                      lambda: warp_dimage(g, zero, torch.bfloat16),
+                      lambda: warp_dimage_reference(g, zero, torch.bfloat16),
+                      x)
+            names = _kernel_names(lambda: warp_dimage(g, flow, torch.bfloat16))
+            print(f"K3's device work over 20 calls (profiler, launches by "
+                  f"kernel): {names}")
+            _require(len(names) == 1 and "warp_dimage_kernel" in
+                     next(iter(names)), "K3 is not one kernel launch a call")
     return out
+
+
+def _k3_edge_cases(gen, dev):
+    """K3 at the HR training warp with g all zero, scaled to 1e-30 and to
+    1e-40 (subnormal, so its scale lies past fp32's range), bit for bit its
+    plain version; with one inf and one NaN in g, non-finite exactly where
+    its plain version is."""
+    import torch
+
+    from tecogan_tpu_torch.ops.warp_vjp import (warp_dimage,
+                                                warp_dimage_reference)
+
+    shape = TRAIN_WARP_SHAPES[0]
+    n, c, h, w = shape
+    flow = _vjp_flow(gen, dev, n, h, w, 6.0)
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.randn(shape, generator=gen, device=dev).to(dt)
+        bad = g.clone()
+        bad[0, 1, 3, 4] = float("inf")
+        bad[n - 1, c - 1, h * 3 // 4, w // 6] = float("nan")
+        for label, gg in (("zero", g * 0), ("1e-30", g * 1e-30),
+                          ("1e-40", g * 1e-40), ("inf and nan", bad)):
+            for xd in (torch.float32, torch.bfloat16):
+                got = warp_dimage(gg, flow, xd)
+                torch.cuda.synchronize()
+                ref = warp_dimage_reference(gg, flow, xd)
+                if label == "inf and nan":
+                    ok = (torch.equal(torch.isfinite(got),
+                                      torch.isfinite(ref))
+                          and torch.equal(torch.isnan(got), torch.isnan(ref))
+                          and not bool(torch.isfinite(got).all()))
+                else:
+                    ok = torch.equal(got, ref)
+                _require(ok, f"K3 edge case g {label} ({dt} -> {xd}) "
+                         f"differs from its plain version")
+    print("K3 edge cases (g zero, 1e-30, 1e-40, one inf and one NaN; g and "
+          "output f32/bf16): ok, bit for bit (the non-finite pattern for inf "
+          "and NaN)")
+
+
+def _kernel_names(fn, iters=20):
+    """{device kernel name: launches} over ``iters`` calls of ``fn``, from
+    torch.profiler (which may drop a launch, never add one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
 
 
 def _test_opt(load_path):
@@ -1185,7 +1271,7 @@ def phase_train(rng, card):
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         batch = model.prepare_training_data({"gt": batches[0]})
         _profile(lambda: model.train(batch), "one training step", card,
-                 ("warp_rgb_kernel", "warp_dimage_kernel",
+                 ("warp_planes_kernel", "warp_dimage_kernel",
                   "warp_dflow_kernel"))
 
         model.save(model.state["step"])
@@ -1325,7 +1411,7 @@ def main() -> int:
             ("K1 band", "warp_planes_band",
              "tecogan_tpu_torch/csrc/warp_planes.cu",
              "tecogan_tpu/ops/warp_pallas.py:153"),
-            ("K2", "warp_rgb", "tecogan_tpu_torch/csrc/warp_rgb.cu",
+            ("K2", "warp_rgb", "tecogan_tpu_torch/csrc/warp_planes.cu",
              "tecogan_tpu/ops/warp_pallas.py:473"),
             ("K3", "warp_dimage", "tecogan_tpu_torch/csrc/warp_vjp.cu",
              "tecogan_tpu/ops/warp_vjp.py:156"),

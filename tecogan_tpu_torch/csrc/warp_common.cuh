@@ -89,12 +89,13 @@ inline unsigned int blocks_for(int n, int H, int W) {
   return (unsigned int)(((int64_t)n * H * W + kThreads - 1) / kThreads);
 }
 
-// The row tiles of the gathers K1 and K5: a block of kTileRows warps, one
-// output row each; lane l of a warp takes the kTileSteps pixels 32 output
-// columns apart at tile column l, 32 + l, ..., so each warp-wide load or
-// store covers 32 neighbouring columns. The grid is (column tiles, row
+// The row tiles of the gathers K1, K2 and K5: a block of kTileRows warps,
+// one output row each; lane l of a warp takes the kTileSteps pixels 32
+// output columns apart at tile column l, 32 + l, ..., so each warp-wide load
+// or store covers 32 neighbouring columns. The grid is (column tiles, row
 // tiles, images), and a thread decodes its pixels from blockIdx and
-// threadIdx without a division. ops/warp_cuda.py::tile_plan mirrors it.
+// threadIdx without a division. ops/warp_cuda.py::tile_plan mirrors it. The
+// scatter K3 takes the same tiles with one pixel a lane.
 constexpr int kTileRows = 4;
 constexpr int kTileSteps = 2;
 

@@ -1,51 +1,67 @@
-// Bilinear backward warp of channel-major planes (K1), for Hopper (sm_90a).
+// The bilinear backward warps K1 (channel-major planes) and K2 (an image
+// addressed by element strides), for Hopper (sm_90a).
 //
-// Replaces the TPU kernel tecogan_tpu/ops/warp_pallas.py::_warp_planes
-// (kernel body _warp_kernel). It computes the same function: output pixel
-// (b, ch, i, j) samples plane (b, ch) at
+// K1 replaces the TPU kernel tecogan_tpu/ops/warp_pallas.py::_warp_planes
+// (kernel body _warp_kernel), the inference warp; K2 replaces
+// ::backward_warp_rgb_flat (kernel body _warp_kernel_rgb), the warp on the
+// channel-interleaved NHWC layout and the forward of every training warp.
+// Both compute the same function: output pixel (b, ch, i, j) samples image
+// (b, ch) at
 //     (clip(i + fy, 0, H-1), clip(j + fx, 0, W-1))
 // with the coordinate clamped first and floored after (grid_sample border
 // padding, align_corners=True). Coordinates, tap weights and the
-// accumulation are fp32; the result is written once in the planes' dtype.
+// accumulation are fp32; the result is written once in the image's dtype.
+//
+// K1 reads and writes contiguous (n, c, H, W) planes. K2 reads the image
+// and writes the output through (n, c, H, W) element strides, so an NCHW
+// tensor (the HR carry) and a channels_last one (the warping loss's view of
+// NHWC frames, the TPU kernel's own layout) both work without a copy. One
+// kernel body serves both (the template flag kStrided); K1's dense strides
+// are compile-time constants there, so its code is what it was.
 //
 // Band mode (the TPU kernel's tiles_per_band, used by row-folded
-// multi-stream inference): the H rows are H / band streams of band rows,
-// the first band_valid of each valid. Row i samples at
+// multi-stream inference; K1 only): the H rows are H / band streams of band
+// rows, the first band_valid of each valid. Row i samples at
 // clip(i mod band + fy, 0, band_valid-1) within its own band, so no stream
 // reads its neighbour's rows. band = 0 is the plain mode, bit for bit.
 //
-// Bound: bytes. At bf16 each pixel moves 2 flow values, 3 plane values in
-// (each read once) and 3 out: 10.98 MB for the (1, 3, 536, 1280) frame
-// (3.28 us at 3.35 TB/s) and 44.6 MB for 4 folded streams (13.3 us).
+// Bound: bytes. At bf16 each pixel moves 2 flow values, 3 image values in
+// (each read once) and 3 out: 10.98 MB for K1's (1, 3, 536, 1280) frame
+// (3.28 us at 3.35 TB/s), 44.6 MB for 4 folded streams (13.3 us), and
+// 0.52 MB for K2's training warp (2, 3, 128, 128) (0.157 us), where the
+// launch and one chain of dependent loads are the floor.
 //
-// Design. The TPU kernel enumerates displacement ranges over 32x128 tiles
-// with slab rolls because the TPU has no per-lane gather; Hopper gathers
-// natively. The first port ran one thread per pixel; its SASS shows why it
-// was slow: ptxas kept the hoisted 64-bit tap pointers live and issued the
-// tap loads a pair at a time, each pair waiting on its use, a chain of
-// dependent L2 round trips per channel, three channels in turn. Now:
+// Design. The TPU kernels enumerate displacement ranges over 32x128 tiles
+// with slab rolls (K2 with the flow repeated on c lanes a pixel) because
+// the TPU has no per-lane gather; Hopper gathers natively. The first ports
+// ran one thread per pixel over a runtime channel loop, with a 64-bit
+// division decode; their SASS showed ptxas keeping the 64-bit tap pointers
+// live and issuing the tap loads a pair at a time, each pair waiting on its
+// use, a chain of dependent L2 round trips per channel. Now:
 // - the grid is (column tiles, row tiles, images) of the tiles in
 //   warp_common.cuh: a warp takes 32 neighbouring columns of one row, each
 //   lane kTileSteps pixels 32 columns apart, decoded from blockIdx and
 //   threadIdx with no division (band mode: one 32-bit remainder per thread
 //   for its block's first row, then a subtraction, so a block may straddle
 //   two bands);
-// - each flow load and store of a warp covers 32 neighbouring elements, and
-//   its tap loads fall on the cache lines around its 32 sample points;
-// - the channel count of every inference path (3) is a template
-//   parameter, so a thread issues all 12 x kTileSteps tap loads before it
-//   uses one (other counts loop over the channels);
-// - tap offsets are 32-bit within an image (the wrapper checks
-//   c*H*W < 2^31) and flow offsets 32-bit within a row, from 64-bit row
-//   bases set once per thread; a column past W reads column W-1 and stores
+// - each flow load and output store of a warp covers 32 neighbouring
+//   pixels, and its tap loads fall on the cache lines around its 32 sample
+//   points (channels_last: a tap's three channels are neighbours, issued
+//   together);
+// - the channel count of every path (3) is a template parameter, so a
+//   thread issues all 12 x kTileSteps tap loads before it uses one (other
+//   counts loop over the channels);
+// - tap and output offsets are 32-bit within an image (the wrappers check
+//   the largest) from 64-bit image bases, and flow offsets 32-bit within a
+//   row from a 64-bit row base; a column past W reads column W-1 and stores
 //   nothing, so no branch guards a load.
 // What is left (PERF.md, section 6): with a zero flow, whose taps are as
-// coalesced as a copy, the kernel still takes about twice a streaming
-// add's time over the same output: the per-pixel work of twelve scalar
-// gathers with fp32 arithmetic that rounds like the plain version, or the
-// flow-then-taps chain of two L2 round trips per warp (not yet told
-// apart). No shared memory, and no size gate: the second taps
-// min(y0+1, H-1) and min(x0+1, W-1) stay in bounds.
+// coalesced as a copy, K1 still takes about twice a streaming add's time
+// over the same output: the per-pixel work of twelve scalar gathers with
+// fp32 arithmetic that rounds like the plain version, or the flow-then-taps
+// chain of two L2 round trips per warp (not yet told apart). No shared
+// memory, and no size gate: the second taps min(y0+1, H-1) and
+// min(x0+1, W-1) stay in bounds.
 //
 // The arithmetic (warp_common.cuh) rounds exactly like the plain PyTorch
 // version (ops/warp_cuda.py::warp_planes_reference).
@@ -58,13 +74,14 @@ using namespace tecogan;
 
 // kTileSteps pixels of one row in C channels (C = 0: c channels, one at a
 // time); each pixel's four taps lie at o00, o00 + dx, o00 + dy and
-// o00 + dy + dx of its channel plane.
-template <typename TI, typename TF, int C>
+// o00 + dy + dx of its channel. kStrided: the image and the output are
+// addressed through xs and os (K2); else they are contiguous (K1).
+template <typename TI, typename TF, int C, bool kStrided>
 __global__ void __launch_bounds__(32 * kTileRows)
     warp_planes_kernel(const TI* __restrict__ planes,
                        const TF* __restrict__ flow, TI* __restrict__ out,
                        int c, int H, int W, int band, int band_valid,
-                       Strides4 fs) {
+                       Strides4 fs, Strides4 xs, Strides4 os) {
   const int i = blockIdx.y * kTileRows + threadIdx.y;
   if (i >= H) return;
   const int b = blockIdx.z;
@@ -77,10 +94,18 @@ __global__ void __launch_bounds__(32 * kTileRows)
     while (row >= band) row -= band;
     rows = band_valid;
   }
+  // element strides within an image, 32-bit (the wrappers check the
+  // largest offset), and the images' 64-bit bases
   const int plane = H * W;
-  const int64_t image = (int64_t)b * c * plane;
-  const TI* src = planes + image;
-  TI* dst = out + image + i * W;
+  const int x1 = kStrided ? (int)xs.s1 : plane;
+  const int x2 = kStrided ? (int)xs.s2 : W;
+  const int x3 = kStrided ? (int)xs.s3 : 1;
+  const int o1 = kStrided ? (int)os.s1 : plane;
+  const int o2 = kStrided ? (int)os.s2 : W;
+  const int o3 = kStrided ? (int)os.s3 : 1;
+  const int64_t dense = (int64_t)b * c * plane;
+  const TI* src = planes + (kStrided ? b * xs.s0 : dense);
+  TI* dst = out + (kStrided ? b * os.s0 : dense) + i * o2;
   // the flow row in 64 bits once; offsets within it are 32-bit
   const TF* f = flow + b * fs.s0 + i * fs.s1;
   const int fj = (int)fs.s2, fk = (int)fs.s3;
@@ -106,9 +131,9 @@ __global__ void __launch_bounds__(32 * kTileRows)
     w01[k] = __fmul_rn(t.wx, wy0);
     w10[k] = __fmul_rn(wx0, t.wy);
     w11[k] = __fmul_rn(t.wx, t.wy);
-    o00[k] = (i - row + t.y0) * W + t.x0;
-    dx[k] = t.x1 - t.x0;
-    dy[k] = (t.y1 - t.y0) * W;
+    o00[k] = (i - row + t.y0) * x2 + t.x0 * x3;
+    dx[k] = (t.x1 - t.x0) * x3;
+    dy[k] = (t.y1 - t.y0) * x2;
   }
   // top + bottom, stored where the column exists
   auto finish = [&](TI* d, int k, const float* v) {
@@ -117,71 +142,106 @@ __global__ void __launch_bounds__(32 * kTileRows)
     const float bot = __fadd_rn(__fmul_rn(w10[k], v[2]),
                                 __fmul_rn(w11[k], v[3]));
     const int j = j0 + 32 * k;
-    if (j < W) store_f32(d + j, __fadd_rn(top, bot));
+    if (j < W) store_f32(d + j * o3, __fadd_rn(top, bot));
   };
   // G channels at a time, every tap load of a group in flight before the
-  // first is used: all C of them when the count is fixed, else one.
-  // Offsets within the image are 32-bit (c*H*W < 2^31).
+  // first is used: all C of them when the count is fixed, else one
   constexpr int G = C > 0 ? C : 1;
   for (int ch0 = 0; ch0 < (C > 0 ? C : c); ch0 += G) {
     float v[G][kTileSteps][4];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int k = 0; k < kTileSteps; ++k) {
 #pragma unroll
-      for (int k = 0; k < kTileSteps; ++k) {
-        const int o = (ch0 + g) * plane + o00[k];
-        v[g][k][0] = load_f32(src + o);
-        v[g][k][1] = load_f32(src + (o + dx[k]));
-        v[g][k][2] = load_f32(src + (o + dy[k]));
-        v[g][k][3] = load_f32(src + (o + dy[k] + dx[k]));
+      for (int q = 0; q < 4; ++q) {
+        const int o = o00[k] + (q & 1 ? dx[k] : 0) + (q & 2 ? dy[k] : 0);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          v[g][k][q] = load_f32(src + ((ch0 + g) * x1 + o));
+        }
       }
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
       for (int k = 0; k < kTileSteps; ++k) {
-        finish(dst + (ch0 + g) * plane, k, v[g][k]);
+        finish(dst + (ch0 + g) * o1, k, v[g][k]);
       }
     }
   }
 }
 
-template <typename TI, typename TF, int C>
-int launch_kernel(const int64_t* a) {
+template <typename TI, typename TF, int C, bool kStrided>
+int run(const int64_t* a, int band, int band_valid, Strides4 fs, Strides4 xs,
+        Strides4 os, cudaStream_t stream) {
   const int n = (int)a[3], c = (int)a[4], H = (int)a[5], W = (int)a[6];
   constexpr int kTileW = 32 * kTileSteps;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileRows - 1) / kTileRows,
                   n);
-  warp_planes_kernel<TI, TF, C><<<grid, dim3(32, kTileRows), 0,
-                                  arg_ptr<CUstream_st>(a, 13)>>>(
-      arg_ptr<const TI>(a, 0), arg_ptr<const TF>(a, 1), arg_ptr<TI>(a, 2), c,
-      H, W, (int)a[7], (int)a[8], strides_from(a + 9));
+  warp_planes_kernel<TI, TF, C, kStrided>
+      <<<grid, dim3(32, kTileRows), 0, stream>>>(
+          arg_ptr<const TI>(a, 0), arg_ptr<const TF>(a, 1), arg_ptr<TI>(a, 2),
+          c, H, W, band, band_valid, fs, xs, os);
   return (int)cudaGetLastError();
 }
 
-// RGB planes (every inference path) take the kernel with the channels
-// unrolled; any other count loops over them
-template <typename TI, typename TF>
-int launch(const int64_t* a) {
+// RGB (every path) takes the kernel with the channels unrolled; any other
+// count loops over them
+template <typename TI, typename TF, bool kStrided>
+int run_any_c(const int64_t* a, int band, int band_valid, Strides4 fs,
+              Strides4 xs, Strides4 os, cudaStream_t stream) {
   if (a[3] * a[4] * a[5] * a[6] == 0) return 0;
-  return a[4] == 3 ? launch_kernel<TI, TF, 3>(a) : launch_kernel<TI, TF, 0>(a);
+  return a[4] == 3 ? run<TI, TF, 3, kStrided>(a, band, band_valid, fs, xs,
+                                              os, stream)
+                   : run<TI, TF, 0, kStrided>(a, band, band_valid, fs, xs,
+                                              os, stream);
+}
+
+// K1: (planes, flow, out, n, c, H, W, band, band_valid, flow strides,
+// stream)
+template <typename TI, typename TF>
+int launch_planes(const int64_t* a) {
+  return run_any_c<TI, TF, false>(a, (int)a[7], (int)a[8],
+                                  strides_from(a + 9), Strides4{},
+                                  Strides4{}, arg_ptr<CUstream_st>(a, 13));
+}
+
+// K2: (x, flow, out, n, c, H, W, the image's, the output's and the flow's
+// strides, stream)
+template <typename TI, typename TF>
+int launch_rgb(const int64_t* a) {
+  const Strides4 xs = strides_from(a + 7), os = strides_from(a + 11),
+                 fs = strides_from(a + 15);
+  return run_any_c<TI, TF, true>(a, 0, 0, fs, xs, os,
+                                 arg_ptr<CUstream_st>(a, 19));
 }
 
 }  // namespace
 
-// Plain C entry points, one per (planes dtype, flow dtype), each taking
-// one int64 array: (planes, flow, out, n, c, H, W, band, band_valid, the
-// flow's element strides in (n, H, W, 2) order, stream). Flow strides are
-// in elements, so an (n, H, W, 2) tensor and the (n, H, W, 2) view of an
-// NCHW (n, 2, H, W) tensor both work without a copy. Planes and out are
-// contiguous (n, c, H, W). band = 0 warps each plane as one image; band > 0
-// (H a multiple of band) as H / band independent bands of band rows, each
-// clamped to its first band_valid rows. The wrapper checks the grid limits
-// and the 32-bit offsets. Returns cudaGetLastError() after the launch.
+// Plain C entry points, one per (image dtype, flow dtype) and kernel, each
+// taking one int64 array. K1, tecogan_warp_planes_*: (planes, flow, out, n,
+// c, H, W, band, band_valid, the flow's element strides in (n, H, W, 2)
+// order, stream); planes and out are contiguous (n, c, H, W); band = 0
+// warps each plane as one image, band > 0 (H a multiple of band) as H / band
+// independent bands of band rows, each clamped to its first band_valid
+// rows. K2, tecogan_warp_rgb_*: (x, flow, out, n, c, H, W, 12 element
+// strides: the image's and the output's in (n, c, H, W) order, then the
+// flow's in (n, H, W, 2) order, stream). Flow strides are in elements, so an
+// (n, H, W, 2) tensor and the (n, H, W, 2) view of an NCHW (n, 2, H, W)
+// tensor both work without a copy. The wrappers check the grid limits and
+// the 32-bit offsets. Each returns cudaGetLastError() after the launch.
 #define TECOGAN_WARP_ENTRY(NAME, TI, TF) \
-  extern "C" int NAME(const int64_t* args) { return launch<TI, TF>(args); }
+  extern "C" int NAME(const int64_t* args) { \
+    return launch_planes<TI, TF>(args);      \
+  }
+#define TECOGAN_WARP_RGB_ENTRY(NAME, TI, TF) \
+  extern "C" int NAME(const int64_t* args) { return launch_rgb<TI, TF>(args); }
 
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_f32_f32, float, float)
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_f32_bf16, float, __nv_bfloat16)
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_bf16_f32, __nv_bfloat16, float)
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_f32_f32, float, float)
+TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_f32_bf16, float, __nv_bfloat16)
+TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_bf16_f32, __nv_bfloat16, float)
+TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_bf16_bf16, __nv_bfloat16,
+                       __nv_bfloat16)

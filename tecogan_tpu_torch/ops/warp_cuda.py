@@ -10,12 +10,15 @@ forward of every training warp. Both compute
 clip(j + fx, 0, W-1))``: clamp, then floor (grid_sample's border padding
 with align_corners=True). Coordinates, tap weights and the accumulation are
 fp32; the output is in the image's dtype. The flow arrives in its
-producer's dtype (fp32 or bf16) and is read as fp32. K1
-(``csrc/warp_planes.cu``) runs on the row tiles of ``tile_plan``: each
-warp one output row, each lane ``TILE_STEPS`` pixels 32 columns apart; K2
-(``csrc/warp_rgb.cu``) is one thread per output pixel. Both loop over the
-channels and move about 16 B per pixel at bf16, so they are bound by
-memory traffic and, at small frames, by the launch.
+producer's dtype (fp32 or bf16) and is read as fp32. One kernel body
+(``csrc/warp_planes.cu``) serves both, on the row tiles of ``tile_plan``:
+each warp one output row, each lane ``TILE_STEPS`` pixels 32 columns
+apart, the RGB channel count unrolled so every tap load is in flight
+before the first is used, 32-bit offsets within an image. K1 reads
+contiguous planes; K2 reads the image and writes the output through their
+element strides (NCHW or channels_last, no copy). Both move about 16 B per
+pixel at bf16, so they are bound by memory traffic and, at the training
+warps' small frames, by the launch.
 
 The wrappers dispatch on where their tensors lie: CPU tensors go to
 ``warp_planes_reference``, CUDA tensors to the kernel. Anything else
@@ -31,8 +34,8 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["tile_pixels", "tile_plan", "warp_planes", "warp_planes_reference",
-           "warp_rgb"]
+__all__ = ["stride_grid", "tile_pixels", "tile_plan", "warp_planes",
+           "warp_planes_reference", "warp_rgb"]
 
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # K1's C entry point for each (planes, flow) dtype pair
@@ -42,19 +45,22 @@ _PLANES_ENTRY = {(a, b): f"tecogan_warp_planes_{ta}_{tb}"
 
 # the row tiles of csrc/warp_common.cuh (kTileRows, kTileSteps)
 TILE_ROWS, TILE_STEPS = 4, 2
+# output elements a thread of K3 converts at once (csrc/warp_vjp.cu kUnroll)
+CONVERT_UNROLL = 4
 _GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y and gridDim.z
 INT32_MAX = 2 ** 31 - 1
 
 
-def tile_plan(images: int, rows: int, cols: int,
-              lanes_per_col: int = 1) -> tuple[tuple, tuple]:
-    """The (grid, block) of K1 and K5, as their C launchers compute it, for
+def tile_plan(images: int, rows: int, cols: int, lanes_per_col: int = 1,
+              steps: int = TILE_STEPS) -> tuple[tuple, tuple]:
+    """The (grid, block) of K1, K2 and K5, as their C launchers compute it, for
     ``images`` x ``rows`` x ``cols`` output pixels: a block is
-    ``TILE_ROWS`` warps, one row each, and each lane takes ``TILE_STEPS``
-    pixels; ``lanes_per_col`` neighbouring lanes share an output column
-    (K5: its s px phases), so a block spans ``32 // lanes_per_col *
-    TILE_STEPS`` columns. Raises ValueError past CUDA's grid limits."""
-    tile_cols = 32 // lanes_per_col * TILE_STEPS
+    ``TILE_ROWS`` warps, one row each, and each lane takes ``steps``
+    pixels (K3's tiles: 1); ``lanes_per_col`` neighbouring lanes share an
+    output column (K5: its s px phases), so a block spans ``32 //
+    lanes_per_col * steps`` columns. Raises ValueError past CUDA's grid
+    limits."""
+    tile_cols = 32 // lanes_per_col * steps
     grid = (-(-cols // tile_cols), -(-rows // TILE_ROWS), images)
     if grid[1] > _GRID_YZ_MAX or grid[2] > _GRID_YZ_MAX:
         raise ValueError(f"{images} images of {rows} rows exceed the CUDA "
@@ -82,6 +88,23 @@ def tile_pixels(images: int, rows: int, cols: int,
     return bz, by * TILE_ROWS + wy, col, lane, by
 
 
+def stride_grid(images: int, channels: int, rows: int, cols: int,
+                cap: int) -> tuple[int, int, int]:
+    """K3's cooperative grid, as its C launcher computes it: ``tile_plan``'s
+    (column tiles, row tiles, images) of one pixel a lane, with more row
+    blocks where that is
+    fewer than the blocks that convert ``CONVERT_UNROLL`` output elements a
+    thread, capped to at most ``cap`` blocks (the blocks that fit on the
+    card at once): columns first, then images, then rows. Each block walks
+    the tiles, and its threads the elements, with grid-stride loops."""
+    (gx, gy, gz), (lanes, warps) = tile_plan(images, rows, cols, steps=1)
+    block = lanes * warps * CONVERT_UNROLL
+    convert = -(-images * channels * rows * cols // block)
+    x = min(gx, cap)
+    z = min(gz, cap // x)
+    return x, min(max(gy, -(-convert // (x * z))), cap // (x * z)), z
+
+
 @functools.lru_cache(maxsize=256)
 def check_warp_shapes(name: str, shape: torch.Size, flow_shape: torch.Size,
                       *more: torch.Size) -> None:
@@ -102,23 +125,45 @@ def check_warp_shapes(name: str, shape: torch.Size, flow_shape: torch.Size,
 
 
 @functools.lru_cache(maxsize=256)
+def check_offsets(name: str, shape: torch.Size, flow_strides: tuple,
+                  *image_strides: tuple) -> None:
+    """Raise unless the offsets a kernel keeps in 32 bits fit: within an
+    image of ``shape`` (n, c, H, W) laid out by each of ``image_strides``,
+    and within a row of the flow. Cached."""
+    _, c, h, w = shape
+    largest = [(c - 1) * s[1] + (h - 1) * s[2] + (w - 1) * s[3]
+               for s in image_strides]
+    if (max(largest, default=0) > INT32_MAX
+            or (w - 1) * flow_strides[2] + flow_strides[3] > INT32_MAX):
+        raise ValueError(f"{name}: an image of {c}x{h}x{w} with strides "
+                         f"{image_strides} or a flow with strides "
+                         f"{flow_strides} exceeds the kernel's 32-bit "
+                         f"offsets")
+
+
+@functools.lru_cache(maxsize=256)
 def _planes_plan(shape: torch.Size, flow_shape: torch.Size,
                  flow_strides: tuple, band: int, band_valid: int) -> None:
-    """Raise unless K1 can take planes of ``shape`` and a flow of
+    """Raise unless K1 can take contiguous planes of ``shape`` and a flow of
     ``flow_shape`` and ``flow_strides``: the shapes of
     ``check_warp_shapes``, a valid band geometry, a grid that fits, and
-    offsets that fit the kernel's 32 bits (taps within an image, flow
-    values within a row). Cached: a path calls it with the same arguments
-    every frame."""
+    offsets that fit the kernel's 32 bits (``check_offsets``). Cached: a
+    path calls it with the same arguments every frame."""
     check_warp_shapes("warp_planes", shape, flow_shape)
     n, c, h, w = shape
     check_band(h, band, band_valid)
     tile_plan(n, h, w)
-    if (c * h * w > INT32_MAX
-            or (w - 1) * flow_strides[2] + flow_strides[3] > INT32_MAX):
-        raise ValueError(f"warp_planes: an image of {c}x{h}x{w} or a flow "
-                         f"with strides {flow_strides} exceeds the kernel's "
-                         f"32-bit offsets")
+    check_offsets("warp_planes", shape, flow_strides, (c * h * w, h * w, w, 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _rgb_plan(shape: torch.Size, strides: tuple, out_strides: tuple,
+              flow_strides: tuple) -> None:
+    """Raise unless K2's grid fits and its 32-bit offsets (an image and an
+    output of any strides) do. Cached."""
+    n, _, h, w = shape
+    tile_plan(n, h, w)
+    check_offsets("warp_rgb", shape, flow_strides, strides, out_strides)
 
 
 def bilinear_taps(flow: torch.Tensor, h: int, w: int, band: int = 0,
@@ -309,10 +354,12 @@ def warp_rgb(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         return warp_planes_reference(x, flow)
     index = check_cuda_warp_args("warp_rgb", x, flow)
     name = f"tecogan_warp_rgb_{_DTYPE_TAG[x.dtype]}_{_DTYPE_TAG[flow.dtype]}"
-    n, c, h, w = x.shape
     out = torch.empty_like(x)
+    xs, os_, fs = x.stride(), out.stride(), flow.stride()
+    _rgb_plan(x.shape, xs, os_, fs)
+    n, c, h, w = x.shape
     launch(name, index, x.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c,
-           h, w, *x.stride(), *out.stride(), *flow.stride())
+           h, w, *xs, *os_, *fs)
     warp_rgb.launches += 1
     return out
 

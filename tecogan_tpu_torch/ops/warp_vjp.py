@@ -7,9 +7,17 @@ and whose backward is two kernels, the counterpart of the custom VJP
 
 - K3, ``warp_dimage``: the adjoint with respect to the image, replacing
   ``_dimage`` (kernel ``_dimage_kernel``). Each output pixel's cotangent
-  times its four bilinear weights is added into its four clamped source
-  taps, in fp32 (``csrc/warp_vjp.cu`` with atomics, so the sum's rounding
-  varies from run to run); the result comes back in the image's dtype.
+  times its four bilinear weights, ``(g * w_y) * w_x`` in fp32, is added
+  into its four clamped source taps. The sums are exact integers at one
+  power-of-two scale a call, ``2^k`` with ``k = 62 - e(M) -
+  ceil(log2(H * W))`` (``M = max |g|``, ``e`` its frexp exponent, so no
+  int64 sum can overflow); each product is rounded to an integer once, and
+  each sum converted back once. So the result is deterministic, the same
+  on the card and on the CPU, and within an fp32 rounding of the exact
+  adjoint. A non-finite ``g`` takes fp32 sums for that call. On the card
+  this is one cooperative kernel launch (``csrc/warp_vjp.cu``) that zeroes
+  its scratch, reduces ``M``, scatters with 64-bit integer atomics and
+  writes the output in the image's dtype; the wrapper only allocates.
 - K4, ``warp_dflow``: the adjoint with respect to the flow, replacing
   ``_dflow`` (kernel ``_dflow_kernel``), from the four tap values, masked
   where the unclamped coordinate is below 0 and summed over channels; fp32,
@@ -23,32 +31,81 @@ anything else raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .warp_cuda import (_DTYPE_TAG, all_on_cpu, bilinear_taps,
-                        check_cuda_warp_args, gather_tap, launch, warp_rgb)
+                        check_cuda_warp_args, check_offsets, gather_tap,
+                        launch, warp_rgb)
 
-__all__ = ["backward_warp_diff", "warp_dimage", "warp_dimage_reference",
-           "warp_dflow", "warp_dflow_reference"]
+__all__ = ["backward_warp_diff", "dimage_scale", "warp_dimage",
+           "warp_dimage_reference", "warp_dflow", "warp_dflow_reference"]
 
-def warp_dimage_reference(g: torch.Tensor, flow: torch.Tensor,
-                          x_dtype: torch.dtype) -> torch.Tensor:
-    """Plain K3: scatter-add of ``(g * w_y) * w_x`` into the four taps.
-    Weights are fp32; products and sums are in fp32, or in float64 when g
-    is float64 (the exact reference the kernel is held against)."""
+# the most blocks of K3 (4 warps each) an SM holds: 2048 threads
+_DIMAGE_BLOCKS_PER_SM = 16
+
+
+def dimage_terms(g: torch.Tensor, flow: torch.Tensor):
+    """K3's scatter as (index, products): for every output pixel and each of
+    its four taps, the tap's flat index in its (H*W) plane, (n, 4*H*W)
+    int64, and ``(g * w_y) * w_x``, (n, c, 4*H*W), in fp32 (float64 for a
+    float64 g)."""
     n, c, h, w = g.shape
     y0, x0, y1, x1, wy, wx = bilinear_taps(flow, h, w)
-    acc = torch.promote_types(g.dtype, torch.float32)
-    gf = g.to(acc)
-    out = torch.zeros((n, c, h * w), dtype=acc, device=g.device)
+    gf = g.to(torch.promote_types(g.dtype, torch.float32))
+    idx, prods = [], []
     for yi, xi, w_y, w_x in ((y0, x0, 1.0 - wy, 1.0 - wx),
                              (y0, x1, 1.0 - wy, wx),
                              (y1, x0, wy, 1.0 - wx),
                              (y1, x1, wy, wx)):
-        idx = (yi * w + xi).reshape(n, 1, h * w).expand(n, c, h * w)
-        src = (gf * w_y[:, None]) * w_x[:, None]
-        out.scatter_add_(2, idx, src.reshape(n, c, h * w))
-    return out.reshape(n, c, h, w).to(x_dtype)
+        idx.append((yi * w + xi).reshape(n, h * w))
+        prods.append(((gf * w_y[:, None]) * w_x[:, None]).reshape(n, c, -1))
+    return torch.cat(idx, 1), torch.cat(prods, 2)
+
+
+def dimage_scale(m: torch.Tensor, h: int, w: int) -> int:
+    """K3's exponent k for a finite fp32 ``M = max |g|`` (a 0-d tensor):
+    ``62 - e(M) - ceil(log2(H * W))``, where ``e(M)`` is frexp's exponent
+    (M < 2^e(M); 0 for M = 0)."""
+    return 62 - int(torch.frexp(m).exponent) - (h * w - 1).bit_length()
+
+
+def scatter_sums(idx: torch.Tensor, prods: torch.Tensor, h: int, w: int,
+                 k: int | None) -> torch.Tensor:
+    """Add ``prods`` (n, c, m) into (n, c, h, w) at the flat tap indices
+    ``idx`` (n, m). ``k`` given: as int64 at scale ``2^k`` (each product
+    scaled exactly in float64, rounded half to even), converted back as
+    ``(double) sum * 2^-k`` rounded to fp32; in any order of the terms the
+    same bits. ``k`` None: in the products' dtype, in scatter order."""
+    n, c, m = prods.shape
+    where = idx[:, None].expand(n, c, m)
+    if k is None:
+        out = torch.zeros((n, c, h * w), dtype=prods.dtype,
+                          device=prods.device)
+        return out.scatter_add_(2, where, prods).reshape(n, c, h, w)
+    q = torch.round(prods.double() * 2.0 ** k).long()
+    sums = torch.zeros((n, c, h * w), dtype=torch.int64, device=prods.device)
+    sums.scatter_add_(2, where, q)
+    return (sums.double() * 2.0 ** -k).float().reshape(n, c, h, w)
+
+
+def warp_dimage_reference(g: torch.Tensor, flow: torch.Tensor,
+                          x_dtype: torch.dtype) -> torch.Tensor:
+    """Plain K3, the kernel's arithmetic step for step: ``dimage_terms``'
+    fp32 products summed as integers at the scale ``dimage_scale`` gives
+    for ``M = max |g|`` (``scatter_sums``), then cast to ``x_dtype``; a
+    non-finite M sums in fp32. A float64 g gives the exact adjoint in
+    float64 (what the kernel and this are held against). The result is laid
+    out as the kernel's, ``torch.empty_like(g)``."""
+    n, c, h, w = g.shape
+    idx, prods = dimage_terms(g, flow)
+    k = None
+    if g.dtype != torch.float64:
+        m = g.float().abs().max() if g.numel() else torch.zeros(())
+        k = dimage_scale(m, h, w) if bool(torch.isfinite(m)) else None
+    out = torch.empty_like(g, dtype=x_dtype)
+    return out.copy_(scatter_sums(idx, prods, h, w, k))
 
 
 def warp_dflow_reference(g: torch.Tensor, x: torch.Tensor,
@@ -75,12 +132,21 @@ def warp_dflow_reference(g: torch.Tensor, x: torch.Tensor,
     return torch.stack([dfx, dfy], dim=-1).to(flow.dtype)
 
 
+@functools.cache
+def _dimage_slots(index: int) -> int:
+    """Slots for the per-block maxima of a K3 launch on CUDA device
+    ``index``: at least the blocks that fit on it at once."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * _DIMAGE_BLOCKS_PER_SM
+
+
 def warp_dimage(g: torch.Tensor, flow: torch.Tensor,
                 x_dtype: torch.dtype) -> torch.Tensor:
     """K3: the warp's adjoint with respect to the image, for a cotangent g
     (n, c, H, W), any strides, and flow (n, H, W, 2); returned in
-    ``x_dtype``. CPU tensors take ``warp_dimage_reference``.
-    ``warp_dimage.launches`` counts kernel launches."""
+    ``x_dtype``, in g's memory format. CPU tensors take
+    ``warp_dimage_reference``; CUDA tensors one kernel launch, bit for bit
+    the same function. ``warp_dimage.launches`` counts kernel launches."""
     if all_on_cpu(g, flow):
         return warp_dimage_reference(g, flow, x_dtype)
     index = check_cuda_warp_args("warp_dimage", g, flow)
@@ -88,13 +154,18 @@ def warp_dimage(g: torch.Tensor, flow: torch.Tensor,
         raise TypeError(f"warp_dimage: x_dtype must be float32/bfloat16, "
                         f"got {x_dtype}")
     name = (f"tecogan_warp_dimage_{_DTYPE_TAG[g.dtype]}_"
-            f"{_DTYPE_TAG[flow.dtype]}")
+            f"{_DTYPE_TAG[flow.dtype]}_{_DTYPE_TAG[x_dtype]}")
+    out = torch.empty_like(g, dtype=x_dtype)
+    gs, os_, fs = g.stride(), out.stride(), flow.stride()
+    check_offsets("warp_dimage", g.shape, fs, gs, os_)
+    slots = _dimage_slots(index)
+    scratch = torch.empty(out.numel() + slots, dtype=torch.int64,
+                          device=g.device)
     n, c, h, w = g.shape
-    out = torch.zeros_like(g, dtype=torch.float32)
-    launch(name, index, g.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c,
-           h, w, *g.stride(), *out.stride(), *flow.stride())
+    launch(name, index, g.data_ptr(), flow.data_ptr(), out.data_ptr(),
+           scratch.data_ptr(), n, c, h, w, slots, *gs, *os_, *fs)
     warp_dimage.launches += 1
-    return out.to(x_dtype)
+    return out
 
 
 def warp_dflow(g: torch.Tensor, x: torch.Tensor,

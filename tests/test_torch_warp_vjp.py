@@ -204,21 +204,25 @@ def test_non_cpu_non_cuda_tensors_raise(fn, img_dev, flow_dev):
 
 
 def test_kernel_sources_export_every_dtype_pair():
-    """Every (image, flow) dtype pair the wrappers can ask for exists as a C
-    entry point in the CUDA sources."""
-    rgb = (kernel_build.CSRC_DIR / "warp_rgb.cu").read_text()
+    """Every dtype combination the wrappers can ask for exists as a C entry
+    point in the CUDA sources: K2 per (image, flow), K3 per (cotangent,
+    flow, output), K4 per (image, flow)."""
+    rgb = (kernel_build.CSRC_DIR / "warp_planes.cu").read_text()
     vjp = (kernel_build.CSRC_DIR / "warp_vjp.cu").read_text()
-    for a in warp_cuda._DTYPE_TAG.values():
-        for b in warp_cuda._DTYPE_TAG.values():
+    tags = warp_cuda._DTYPE_TAG.values()
+    for a in tags:
+        for b in tags:
             assert f"TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_{a}_{b}," in rgb
-            assert f"TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_{a}_{b}," in vjp
             assert f"TECOGAN_DFLOW_ENTRY(tecogan_warp_dflow_{a}_{b}," in vjp
+            for o in tags:
+                assert (f"TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_{a}_{b}_"
+                        f"{o},") in vjp
 
 
 # each kernel's C launcher that reads the packed arguments: (source, name)
-_LAUNCHERS = {"K1": ("warp_planes.cu", "launch_kernel"),
-              "K1 band": ("warp_planes.cu", "launch_kernel"),
-              "K2": ("warp_rgb.cu", "launch"),
+_LAUNCHERS = {"K1": ("warp_planes.cu", "launch_planes"),
+              "K1 band": ("warp_planes.cu", "launch_planes"),
+              "K2": ("warp_planes.cu", "launch_rgb"),
               "K3": ("warp_vjp.cu", "launch_dimage"),
               "K4": ("warp_vjp.cu", "launch_dflow"),
               "K5": ("warp_phases.cu", "launch_kernel")}
@@ -240,6 +244,7 @@ def test_wrappers_pack_what_the_c_launchers_read(monkeypatch, rng, kernel):
                             lambda name, index, *a: calls.append(a))
     monkeypatch.setattr(warp_cuda, "cuda_index", lambda name, *t: 0)
     monkeypatch.setattr(wp, "cuda_index", lambda name, *t: 0)
+    monkeypatch.setattr(warp_vjp, "_dimage_slots", lambda index: 7)
 
     x = torch.randn(2, 3, 8, 12)
     g = torch.randn(2, 3, 8, 12)
@@ -247,14 +252,13 @@ def test_wrappers_pack_what_the_c_launchers_read(monkeypatch, rng, kernel):
     sy = torch.rand(1, 4, 4, 6)
     sx = torch.rand(1, 4, 6, 4).transpose(2, 3)
     channels_last = x.contiguous(memory_format=torch.channels_last)
-    f32 = torch.float32
     run, strides = {
         "K1": (lambda: warp_planes(x, flow), [flow]),
         "K1 band": (lambda: warp_planes(x, flow, 4, 3), [flow]),
         "K2": (lambda: warp_rgb(channels_last, flow),
                [channels_last, channels_last, flow]),
-        "K3": (lambda: warp_dimage(g, flow, torch.bfloat16),
-               [g, torch.zeros_like(g, dtype=f32), flow]),
+        "K3": (lambda: warp_dimage(channels_last, flow, torch.bfloat16),
+               [channels_last, channels_last, flow]),
         "K4": (lambda: warp_dflow(g, x, flow), [g, x, flow]),
         "K5": (lambda: wp.warp_phases(
             wp.phase_planes(torch.randn(1, 3, 8, 12), 2), sy, sx, 2),
@@ -272,3 +276,175 @@ def test_wrappers_pack_what_the_c_launchers_read(monkeypatch, rng, kernel):
                                           body)]
     assert [tuple(args[k:k + 4]) for k in offsets] == [
         t.stride() for t in strides]
+
+
+def _float64_adjoint(g, flow):
+    return warp_dimage_reference(g.double(), flow, torch.float64)
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _SHAPES)
+def test_k3_fixed_point_matches_float64_adjoint(rng, shape, g_dtype):
+    """The fixed-point sums are within an fp32 rounding of the exact
+    adjoint of the same fp32 products: rtol 1e-5, with an atol of 1e-6 *
+    max |ref| for sums that cancel (the card's check is rtol 1e-4)."""
+    _, flow, g = _inputs(rng, shape)
+    gt, ft = _nchw(g, g_dtype), torch.from_numpy(flow)
+    got = warp_dimage_reference(gt, ft, torch.float32)
+    ref = _float64_adjoint(gt, ft)
+    np.testing.assert_allclose(got.double().numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-6 * float(ref.abs().max()))
+    # the mixed-precision call: the same sums rounded once more, to bf16
+    torch.testing.assert_close(warp_dimage_reference(gt, ft, torch.bfloat16),
+                               got.bfloat16(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", _SHAPES[:2])
+def test_k3_fixed_point_is_independent_of_order(rng, shape):
+    """Any order of the scatter's terms (every output pixel's four taps with
+    their products, as the card's atomics may add them) gives the same
+    bits: the sums are integers."""
+    _, flow, g = _inputs(rng, shape, scale=60.0)
+    gt, ft = _nchw(g), torch.from_numpy(flow)
+    n, c, h, w = gt.shape
+    idx, prods = warp_vjp.dimage_terms(gt, ft)
+    k = warp_vjp.dimage_scale(gt.abs().max(), h, w)
+    want = warp_vjp.scatter_sums(idx, prods, h, w, k)
+    torch.testing.assert_close(warp_dimage_reference(gt, ft, torch.float32),
+                               want, rtol=0, atol=0)
+    for seed in range(3):
+        perm = torch.from_numpy(
+            np.random.default_rng(seed).permutation(idx.shape[1]))
+        got = warp_vjp.scatter_sums(idx[:, perm], prods[..., perm], h, w, k)
+        assert torch.equal(got, want)
+
+
+def test_k3_scale_keeps_every_sum_in_int64(rng):
+    """2^k * M * H * W <= 2^62 for the exponent the kernel takes, so no
+    source sum (at most M * H * W, the weights of a pixel summing to 1) can
+    overflow; and the scale is not wasted by more than 2 bits."""
+    for m in (1.0, 0.75, 3.0e38, 1e-30, 2.0 ** -149, 1e-40):
+        for h, w in ((1, 1), (17, 23), (128, 128), (536, 1280)):
+            k = warp_vjp.dimage_scale(torch.tensor(m, dtype=torch.float32),
+                                      h, w)
+            total = float(np.float32(m)) * h * w * 2.0 ** k
+            assert 2.0 ** 60 <= total <= 2.0 ** 62
+
+
+@pytest.mark.parametrize("case", ["zero", "tiny", "subnormal", "non-finite"])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_k3_edge_cases(rng, case, g_dtype):
+    """M = 0 gives zeros; g of 1e-30 (products near the subnormal range)
+    and of 1e-40 (a subnormal M, so a scale past fp32's range) keep their
+    sums; one inf and one NaN in g give non-finite outputs exactly where a
+    product is non-finite (a tap of weight 0 gets 0 * inf = NaN) and finite
+    ones elsewhere."""
+    _, flow, g = _inputs(rng, (1, 17, 23, 3))
+    g = {"zero": 0.0 * g, "tiny": 1e-30 * g, "subnormal": 1e-40 * g,
+         "non-finite": g}[case]
+    gt, ft = _nchw(g, g_dtype), torch.from_numpy(flow)
+    if case == "non-finite":
+        gt = gt.clone()
+        gt[0, 1, 3, 4] = float("inf")
+        gt[0, 2, 10, 20] = float("nan")
+    got = warp_dimage_reference(gt, ft, torch.float32)
+    torch.testing.assert_close(warp_dimage(gt, ft, torch.float32), got,
+                               rtol=0, atol=0, equal_nan=True)
+    if case == "zero":
+        assert torch.equal(got, torch.zeros_like(got))
+    elif case == "non-finite":
+        idx, prods = warp_vjp.dimage_terms(gt, ft)
+        bad = warp_vjp.scatter_sums(idx, (~torch.isfinite(prods)).double(),
+                                    17, 23, None) > 0
+        assert bad.sum() >= 2
+        assert torch.equal(~torch.isfinite(got), bad)
+    else:
+        ref = _float64_adjoint(gt, ft)
+        assert float(got.abs().max()) > 0
+        # as at unit scale, and fp32 products of 1e-40 keep a few bits: an
+        # atol of some ulps of the smallest subnormal per term
+        atol = max(1e-6 * float(ref.abs().max()), 64 * 2.0 ** -149)
+        np.testing.assert_allclose(got.double().numpy(), ref.numpy(),
+                                   rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 128), (18, 32, 32),
+                                   (1, 536, 1280), (1, 17, 23)])
+@pytest.mark.parametrize("cap", [1, 7, 128, 132 * 16])
+def test_k3_stride_grid_takes_every_tile_once(shape, cap):
+    """K3's cooperative grid has at most ``cap`` blocks, its grid-stride
+    loops over (column tiles, row tiles, images) give every tile of
+    ``tile_plan`` to exactly one block, and unless its rows reach the cap
+    it has enough threads to convert every output element in one round of
+    loads."""
+    n, h, w = shape
+    (tx, ty, tz), (lanes, warps) = warp_cuda.tile_plan(n, h, w, steps=1)
+    gx, gy, gz = warp_cuda.stride_grid(n, 3, h, w, cap)
+    blocks = gx * gy * gz
+    assert 1 <= blocks <= cap
+    if gy < cap // (gx * gz):
+        assert (blocks * lanes * warps * warp_cuda.CONVERT_UNROLL
+                >= n * 3 * h * w)
+    hits = np.zeros((tx, ty, tz), np.int64)
+    for bx in range(gx):
+        for by in range(gy):
+            for bz in range(gz):
+                hits[bx::gx, by::gy, bz::gz] += 1
+    assert (hits == 1).all()
+
+
+# K2's shapes: the training warps and the card check's shapes
+@pytest.mark.parametrize("shape", [(2, 3, 128, 128), (18, 3, 32, 32),
+                                   (1, 3, 17, 23), (2, 1, 5, 33)])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_k2_plan_writes_every_element_once(shape, layout):
+    """K2's row tiles cover every output pixel once, and its strided
+    stores (image base, then 32-bit channel, row and column offsets) put
+    each (pixel, channel) at its own element of the output."""
+    n, c, h, w = shape
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    out = torch.empty(shape).contiguous(memory_format=fmt)
+    flow = torch.empty(n, 2, h, w).permute(0, 2, 3, 1)
+    warp_cuda._rgb_plan(out.shape, out.stride(), out.stride(), flow.stride())
+    b, i, j, _, _ = warp_cuda.tile_pixels(n, h, w)
+    inside = (i < h) & (j < w)
+    s0, s1, s2, s3 = out.stride()
+    where = (b[inside] * s0 + i[inside] * s2 + j[inside] * s3)[:, None] \
+        + np.arange(c)[None, :] * s1
+    assert np.array_equal(np.sort(where.ravel()), np.arange(out.numel()))
+
+
+def test_k3_constants_match_the_cuda_source():
+    text = (kernel_build.CSRC_DIR / "warp_vjp.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\w+);", text))
+    assert int(consts["kUnroll"]) == warp_cuda.CONVERT_UNROLL
+    # one pixel a lane: 32-column tiles of kTileRows rows
+    assert "constexpr int kBlock = 32 * kTileRows;" in text
+    assert "const int tiles_x = (W + 31) / 32;" in text
+
+
+def test_k2_k3_plans_reject_offsets_past_32_bits():
+    big = torch.Size((1, 3, 30000, 30000))
+    strides = (2700000000, 1, 90000, 3)
+    with pytest.raises(ValueError, match="32-bit"):
+        warp_cuda._rgb_plan(big, strides, strides, (1, 60000, 2, 1))
+    with pytest.raises(ValueError, match="32-bit"):
+        warp_cuda.check_offsets("warp_dimage", big, (1, 60000, 2, 1),
+                                strides, strides)
+    # a flow row past 32 bits
+    with pytest.raises(ValueError, match="32-bit"):
+        warp_cuda.check_offsets("warp_dimage", torch.Size((1, 3, 8, 8)),
+                                (1, 1, 2 ** 30, 1), (192, 64, 8, 1))
+
+
+def test_k3_cpu_output_laid_out_as_the_kernels(rng):
+    """warp_dimage returns torch.empty_like(g) in x_dtype: a channels_last
+    cotangent gives a channels_last gradient, with the same values."""
+    _, flow, g = _inputs(rng, (1, 17, 23, 3))
+    gt, ft = _nchw(g), torch.from_numpy(flow)
+    assert gt.is_contiguous(memory_format=torch.channels_last)
+    got = warp_dimage(gt, ft, torch.bfloat16)
+    assert got.stride() == torch.empty_like(gt).stride()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, warp_dimage(gt.contiguous(), ft, torch.bfloat16))
