@@ -31,18 +31,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
    FPS of both, in turns, and a profile;
 7. inference on the card against the CPU plain path, same weights and
    inputs, default and packed16;
-8. K2, K3 and K4 (the training warp and its two adjoints) against their
-   plain versions at the training shapes, the TPU kernel test's shapes and
-   the 536x1280 HR frame, image and flow in f32 and bf16, NCHW and
-   channels_last: K2 and K3 bit for bit (K3 against its fixed-point plain
-   version, two launches bit-identical, and near the float64 adjoint), K3
-   also with g zero, tiny, subnormal and non-finite, and as one kernel
-   launch a call; with their times, and K2's and K3's two controls;
+8. K2, K3 and K4 (the training warp and its two adjoints), and K3 and K4
+   in one launch, against their plain versions at the training shapes, the
+   TPU kernel test's shapes and the 536x1280 HR frame, image and flow in
+   f32 and bf16, NCHW and channels_last: all bit for bit (K3 against its
+   fixed-point plain version, and near the float64 adjoint; the fused
+   call's two outputs against K3's and K4's and their plain versions), two
+   launches of K3 and of the fused call bit-identical; K3 and the fused
+   call also with g zero, tiny, subnormal and non-finite; K3, K4 and the
+   fused call one kernel launch a call, the cooperative grids one pass at
+   the training shapes; with their times beside grid_sample's backward for
+   the same gradients, and each kernel's zero-flow and streaming-add
+   controls;
 9. the training path: a VSRModel built like the Vimeo FRVSR train.yml
    (nf=64, nb=10, 4x BD, batch 2 x 10 frames of 136^2 uint8 GT, bf16 mixed
-   precision, remat) takes five steps; the K2/K3/K4 launch counts must be
-   exactly what the step's structure gives; ms/step, a profile of one step,
-   then save and resume into a fresh model;
+   precision, remat) takes five steps; the K2/K3/K4 launch counts (and the
+   K3 launches fused with K4) must be exactly what the step's structure
+   gives; ms/step, a profile of one step, then save and resume into a
+   fresh model;
 10. one training step on the card against the CPU, fp32 and bf16.
 
 Every kernel is timed beside its plain version, its device time (from
@@ -101,7 +107,7 @@ FP32_OPS_PER_S = 67e12
 # floors, weights) and per output pixel and channel (taps), counted from
 # its source
 KERNEL_OPS = {"K1": (16, 7), "K2": (16, 7), "K3": (12, 10), "K4": (16, 16),
-              "K5": (18, 7)}
+              "K3+K4": (28, 26), "K5": (18, 7)}
 
 
 def _require(cond, msg):
@@ -182,26 +188,30 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters=20):
+def _device_ms(fn, iters=20, tries=3):
     """Device time per call of ``fn`` from torch.profiler over ``iters``
     calls: each kernel's mean time per launch, times its launches per call,
     summed over the kernels (so a launch the profiler drops does not count
-    as time saved). None if the profiler records no device time."""
+    as time saved). The profiler now and then records no device time at
+    all: then it profiles again, ``tries`` times in all, and gives None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total / e.count
-             * max(1, round(e.count / iters))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.count)
-    return us / 1e3 if us else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total / e.count
+                 * max(1, round(e.count / iters))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count)
+        if us:
+            return us / 1e3
+    return None
 
 
 def _bound(kernel, inputs, outputs, pixels, channels):
@@ -266,7 +276,7 @@ def _controls(label, card, kern, plain, out):
     same bytes: together they bound what any tap pattern could save."""
     import torch
 
-    _require(torch.equal(kern(), plain()),
+    _require(_equal(kern(), plain()),
              f"{label} disagrees with its plain version")
     a = torch.randn(out.shape, device=out.device).bfloat16()
     b = torch.randn(out.shape, device=out.device).bfloat16()
@@ -595,14 +605,11 @@ def phase_k5(card):
     return t
 
 
-# K2 is held to K1's tolerances (same arithmetic, same rounding). K4 sums
-# three channels in fp32 in the kernel's order: rtol 1e-5, with an atol of
-# 1e-5 * max|ref| for terms that cancel; a bf16 flow gradient rounds two
-# such fp32 values, so it may differ by one bf16 ulp (2^-7 relative). K3
+# K2 is held to K1's tolerances (same arithmetic, same rounding). K4 adds
+# the channels in fp32 in order, as its plain version does: bit for bit. K3
 # sums exact integers: bit for bit its fixed-point plain version, the same
 # bits in two launches, and against the float64 adjoint rtol 1e-4, with an
-# atol of 1e-5 * max|ref|.
-K4_RTOL, K4_ATOL_REL, K4_BF16_RTOL = 1e-5, 1e-5, 2.0 ** -7
+# atol of 1e-5 * max|ref|. The fused launch: bit for bit K3 and K4.
 K3_RTOL, K3_ATOL_REL = 1e-4, 1e-5
 # the two training warps at full width: HR (batch 2, 128^2 GT crop) and the
 # warping loss's LR warp (2 x 9 frame pairs of 32^2)
@@ -626,9 +633,24 @@ def _vjp_flow(gen, dev, n, h, w, sigma):
     return flow
 
 
+def _equal(a, b, nan=False):
+    """Bit for bit, for tensors or tuples of them; ``nan``: NaN where the
+    other is NaN (its bits may differ), every other value equal."""
+    import torch
+
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_equal(u, v, nan)
+                                        for u, v in zip(a, b))
+    if not nan:
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a.dtype == b.dtype and torch.allclose(
+        a.float(), b.float(), rtol=0.0, atol=0.0, equal_nan=True)
+
+
 def phase_k234(card):
-    """K2, K3 and K4 against their plain versions on the card. Returns
-    {kernel: its numbers}, the times at the HR training warp in bf16."""
+    """K2, K3, K4 and K3 with K4 in one launch against their plain versions
+    on the card. Returns {kernel: its numbers}, the times at the HR
+    training warp in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -636,12 +658,13 @@ def phase_k234(card):
     from tecogan_tpu_torch.ops.warp_vjp import (warp_dflow,
                                                 warp_dflow_reference,
                                                 warp_dimage,
+                                                warp_dimage_dflow,
                                                 warp_dimage_reference)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
-    err = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+    err = {"K2": 0.0, "K3": 0.0, "K4": 0.0, "K3+K4": 0.0}
     n_cases = 0
     for shape in TRAIN_WARP_SHAPES + VJP_TEST_SHAPES:
         n, c, h, w = shape
@@ -683,11 +706,11 @@ def phase_k234(card):
                         torch.cuda.synchronize()
                         _require(torch.equal(a, b), f"K3 differs between "
                                  f"two launches: {tag}")
+                        plain_dx = warp_dimage_reference(g, flow, dts[xd])
                         _require(
                             torch.equal(a, warp_dimage_reference(
                                 g, flow, torch.float32))
-                            and torch.equal(low, warp_dimage_reference(
-                                g, flow, dts[xd]))
+                            and torch.equal(low, plain_dx)
                             and low.stride() == g.stride(),
                             f"K3 differs from its fixed-point plain "
                             f"version: {tag}")
@@ -701,34 +724,51 @@ def phase_k234(card):
                                  f"K3 disagrees with the float64 adjoint: "
                                  f"{tag} max_abs_err={e:.3g}")
 
-                        # K4
+                        # K4 alone, bit for bit its plain version
                         got = warp_dflow(g, x, flow)
                         torch.cuda.synchronize()
-                        ref = warp_dflow_reference(g, x, flow)
+                        plain_df = warp_dflow_reference(g, x, flow)
                         _require(got.dtype == flow.dtype
                                  and got.shape == (n, h, w, 2),
                                  f"K4 output {got.dtype} {tuple(got.shape)}")
-                        atol = K4_ATOL_REL * float(ref.float().abs().max())
-                        rtol = K4_RTOL if fd == "f32" else K4_BF16_RTOL
-                        e = float((got.float() - ref.float()).abs().max())
+                        e = float((got.float() - plain_df.float()).abs().max())
                         err["K4"] = max(err["K4"], e)
-                        _require(torch.allclose(got.float(), ref.float(),
-                                                rtol=rtol, atol=atol),
+                        _require(torch.equal(got, plain_df),
                                  f"K4 disagrees with its plain version: "
                                  f"{tag} max_abs_err={e:.3g}")
+
+                        # K3 and K4 in one launch, twice: the same bits, and
+                        # bit for bit K3's, K4's and their plain versions'
+                        dx, df = warp_dimage_dflow(g, x, flow)
+                        again = warp_dimage_dflow(g, x, flow)
+                        torch.cuda.synchronize()
+                        _require(_equal((dx, df), again), f"K3+K4 differs "
+                                 f"between two launches: {tag}")
+                        e = max(float((dx.float() - plain_dx.float()).abs()
+                                      .max()),
+                                float((df.float() - plain_df.float()).abs()
+                                      .max()))
+                        err["K3+K4"] = max(err["K3+K4"], e)
+                        _require(_equal((dx, df), (low, got))
+                                 and _equal((dx, df), (plain_dx, plain_df))
+                                 and dx.stride() == g.stride(),
+                                 f"K3+K4 differs from K3, K4 or their plain "
+                                 f"versions: {tag} max_abs_err={e:.3g}")
                         n_cases += 1
-    print(f"K2/K3/K4 against their plain versions: {n_cases} cases ok "
+    print(f"K2/K3/K4/K3+K4 against their plain versions: {n_cases} cases ok "
           f"(shapes {TRAIN_WARP_SHAPES + VJP_TEST_SHAPES}, sigma 6/30/300, "
           f"image and flow f32/bf16, NCHW and channels_last); max abs err "
           f"K2 {err['K2']:.3g}, K3 0 against its fixed-point plain version "
           f"({err['K3']:.3g} against the float64 adjoint), K4 "
-          f"{err['K4']:.3g}; K3 run-to-run spread over two launches 0 in "
-          f"every case")
+          f"{err['K4']:.3g}, K3+K4 {err['K3+K4']:.3g} (its dx and dflow "
+          f"equal K3's and K4's); run-to-run spread over two launches 0 in "
+          f"every case for K3 and K3+K4")
     _k3_edge_cases(gen, dev)
+    _one_pass_grids()
 
-    # the library calls: grid_sample with border padding for K2, and its
-    # autograd backward, which gives the image and the grid gradients in
-    # one call, for K3 and K4 together
+    # the library calls: grid_sample with border padding for K2, and
+    # grid_sample's backward for the same gradients as K3 (the image's),
+    # K4 (the grid's) and the fused call (both)
     out = {}
     for shape in TRAIN_WARP_SHAPES:
         n, c, h, w = shape
@@ -737,13 +777,10 @@ def phase_k234(card):
         flow = (torch.randn((n, h, w, 2), generator=gen, device=dev)
                 * 6.0).bfloat16()
         grid = _grid(flow, x.dtype)
-        xr = x.detach().requires_grad_()
-        gr = grid.detach().requires_grad_()
-        y = F.grid_sample(xr, gr, mode="bilinear", padding_mode="border",
-                          align_corners=True)
 
-        def lib_vjp():
-            return torch.autograd.grad(y, (xr, gr), g, retain_graph=True)
+        def lib_vjp(mask, grid=grid, x=x, g=g):
+            return lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g, x, grid, 0, 1, True, mask)
 
         pixels = n * h * w
         cases = {
@@ -755,18 +792,25 @@ def phase_k234(card):
                    _bound("K2", (x, flow), (x,), pixels, c)),
             "K3": (lambda: warp_dimage(g, flow, torch.bfloat16),
                    lambda: warp_dimage_reference(g, flow, torch.bfloat16),
-                   lib_vjp, _bound("K3", (g, flow), (x,), pixels, c)),
+                   lib_vjp([True, False]),
+                   _bound("K3", (g, flow), (x,), pixels, c)),
             "K4": (lambda: warp_dflow(g, x, flow),
                    lambda: warp_dflow_reference(g, x, flow),
-                   lib_vjp, _bound("K4", (g, x, flow), (flow,), pixels, c)),
+                   lib_vjp([False, True]),
+                   _bound("K4", (g, x, flow), (flow,), pixels, c)),
+            "K3+K4": (lambda: warp_dimage_dflow(g, x, flow),
+                      lambda: (warp_dimage_reference(g, flow, x.dtype),
+                               warp_dflow_reference(g, x, flow)),
+                      lib_vjp([True, True]),
+                      _bound("K3+K4", (g, x, flow), (x, flow), pixels, c)),
         }
         for name, (kern, plain, library, bound) in cases.items():
             t = _time_kernel(f"{name} time {shape} bf16 image+flow", card,
                              kern, plain, library, bound)
             if shape == TRAIN_WARP_SHAPES[0]:
                 out[name] = {**t, "max_abs_err": err[name]}
+        zero = torch.zeros_like(flow)
         if shape == TRAIN_WARP_SHAPES[0]:
-            zero = torch.zeros_like(flow)
             _controls(f"K2 {shape} zero flow", card,
                       lambda: warp_rgb(x, zero),
                       lambda: warp_planes_reference(x, zero), x)
@@ -774,50 +818,105 @@ def phase_k234(card):
                       lambda: warp_dimage(g, zero, torch.bfloat16),
                       lambda: warp_dimage_reference(g, zero, torch.bfloat16),
                       x)
-            names = _kernel_names(lambda: warp_dimage(g, flow, torch.bfloat16))
-            print(f"K3's device work over 20 calls (profiler, launches by "
-                  f"kernel): {names}")
-            _require(len(names) == 1 and "warp_dimage_kernel" in
-                     next(iter(names)), "K3 is not one kernel launch a call")
+        _controls(f"K4 {shape} zero flow", card,
+                  lambda: warp_dflow(g, x, zero),
+                  lambda: warp_dflow_reference(g, x, zero), flow)
+        _controls(f"K3+K4 {shape} zero flow", card,
+                  lambda: warp_dimage_dflow(g, x, zero),
+                  lambda: (warp_dimage_reference(g, zero, x.dtype),
+                           warp_dflow_reference(g, x, zero)),
+                  torch.cat([x.flatten(), flow.flatten()]))
+        for name, fn, kernel in (
+                ("K3", lambda: warp_dimage(g, flow, torch.bfloat16),
+                 "warp_dimage_kernel"),
+                ("K4", lambda: warp_dflow(g, x, flow), "warp_dflow_kernel"),
+                ("K3+K4", lambda: warp_dimage_dflow(g, x, flow),
+                 "warp_dimage_dflow_kernel")):
+            names = _kernel_names(fn)
+            print(f"{name}'s device work over 20 calls at {shape} "
+                  f"(profiler, launches by kernel): {names}")
+            _require(len(names) == 1 and kernel in next(iter(names)),
+                     f"{name} is not one kernel launch a call")
     return out
 
 
+def _one_pass_grids():
+    """K3's and the fused launch's cooperative grids at the training
+    shapes, capped by CUDA's occupancy query: each must hold every tile
+    (one pass, the flow and g kept across the first barrier)."""
+    from tecogan_tpu_torch.ops.warp_cuda import stride_grid, tile_plan
+    from tecogan_tpu_torch.ops.warp_vjp import (_dimage_slots,
+                                                dimage_resident_blocks)
+
+    for name in ("tecogan_warp_dimage_bf16_bf16_bf16",
+                 "tecogan_warp_dimage_dflow_bf16_bf16"):
+        for n, c, h, w in TRAIN_WARP_SHAPES:
+            resident = dimage_resident_blocks(name, 0, c)
+            grid = stride_grid(n, c, h, w, min(resident, _dimage_slots(0)))
+            tiles, _ = tile_plan(n, h, w, steps=1)
+            print(f"{name} at {(n, c, h, w)}: {resident} co-resident blocks "
+                  f"(occupancy query), grid {grid} over tiles {tiles}")
+            _require(grid == tiles, f"{name} takes more than one pass at "
+                     f"{(n, c, h, w)}")
+
+
 def _k3_edge_cases(gen, dev):
-    """K3 at the HR training warp with g all zero, scaled to 1e-30 and to
-    1e-40 (subnormal, so its scale lies past fp32's range), bit for bit its
-    plain version; with one inf and one NaN in g, non-finite exactly where
-    its plain version is."""
+    """K3 and the fused K3+K4 at the HR training warp with g all zero,
+    scaled to 1e-30 and to 1e-40 (subnormal, so its scale lies past fp32's
+    range), bit for bit their plain versions; with one inf and one NaN in
+    g, the image adjoint non-finite exactly where its plain version is and
+    the flow adjoint (a plain gather) equal to its plain version, NaN where
+    it is NaN."""
     import torch
 
-    from tecogan_tpu_torch.ops.warp_vjp import (warp_dimage,
+    from tecogan_tpu_torch.ops.warp_vjp import (warp_dflow,
+                                                warp_dflow_reference,
+                                                warp_dimage,
+                                                warp_dimage_dflow,
                                                 warp_dimage_reference)
 
     shape = TRAIN_WARP_SHAPES[0]
     n, c, h, w = shape
     flow = _vjp_flow(gen, dev, n, h, w, 6.0)
+
+    def same_dx(got, ref, nonfinite):
+        if not nonfinite:
+            return torch.equal(got, ref)
+        return (torch.equal(torch.isfinite(got), torch.isfinite(ref))
+                and torch.equal(torch.isnan(got), torch.isnan(ref))
+                and not bool(torch.isfinite(got).all()))
+
     for dt in (torch.float32, torch.bfloat16):
         g = torch.randn(shape, generator=gen, device=dev).to(dt)
+        x = torch.rand(shape, generator=gen, device=dev).to(dt)
         bad = g.clone()
         bad[0, 1, 3, 4] = float("inf")
         bad[n - 1, c - 1, h * 3 // 4, w // 6] = float("nan")
         for label, gg in (("zero", g * 0), ("1e-30", g * 1e-30),
                           ("1e-40", g * 1e-40), ("inf and nan", bad)):
+            nonfinite = label == "inf and nan"
             for xd in (torch.float32, torch.bfloat16):
                 got = warp_dimage(gg, flow, xd)
                 torch.cuda.synchronize()
                 ref = warp_dimage_reference(gg, flow, xd)
-                if label == "inf and nan":
-                    ok = (torch.equal(torch.isfinite(got),
-                                      torch.isfinite(ref))
-                          and torch.equal(torch.isnan(got), torch.isnan(ref))
-                          and not bool(torch.isfinite(got).all()))
-                else:
-                    ok = torch.equal(got, ref)
-                _require(ok, f"K3 edge case g {label} ({dt} -> {xd}) "
-                         f"differs from its plain version")
-    print("K3 edge cases (g zero, 1e-30, 1e-40, one inf and one NaN; g and "
-          "output f32/bf16): ok, bit for bit (the non-finite pattern for inf "
-          "and NaN)")
+                _require(same_dx(got, ref, nonfinite),
+                         f"K3 edge case g {label} ({dt} -> {xd}) differs "
+                         f"from its plain version")
+            dx, df = warp_dimage_dflow(gg, x, flow)
+            df_alone = warp_dflow(gg, x, flow)
+            torch.cuda.synchronize()
+            ref_df = warp_dflow_reference(gg, x, flow)
+            _require(same_dx(dx, warp_dimage_reference(gg, flow, dt),
+                             nonfinite)
+                     and _equal(df, ref_df, nan=True)
+                     and _equal(df_alone, ref_df, nan=True)
+                     and nonfinite == bool(torch.isnan(df).any()),
+                     f"K3+K4 or K4 edge case g {label} ({dt}) differs from "
+                     f"the plain versions")
+    print("K3 and K3+K4 edge cases (g zero, 1e-30, 1e-40, one inf and one "
+          "NaN; g and output f32/bf16): ok, bit for bit (the image "
+          "adjoint's non-finite pattern and the flow adjoint's NaNs for inf "
+          "and NaN); K4 alone likewise")
 
 
 def _kernel_names(fn, iters=20):
@@ -946,14 +1045,18 @@ def _reset_counts():
     for c in counters.values():
         c.launches = 0
     counters["K1"].band_launches = 0
+    counters["K3"].dflow_launches = 0
 
 
 def _read_counts():
     """Every kernel's launch count; "K1 band" counts K1's band-mode
-    launches, which "K1" includes."""
+    launches, which "K1" includes, and "K3+K4" K3's launches that also
+    computed the flow adjoint, which "K3" includes ("K4" counts K4's own
+    launches)."""
     counters = _kernel_counters()
     return {**{k: c.launches for k, c in counters.items()},
-            "K1 band": counters["K1"].band_launches}
+            "K1 band": counters["K1"].band_launches,
+            "K3+K4": counters["K3"].dflow_launches}
 
 
 def _uint8_diff(a, b):
@@ -1208,15 +1311,18 @@ def _expected_launches(t, remat):
     """Kernel launches of one FRVSR step, from its structure: one K2 per
     forward warp (t HR warps, one warping-loss warp), plus one per HR warp
     recomputed under remat; one K3 per warp whose image needs a gradient
-    (every HR warp but frame 0's zero carry; not the loss's LR data); one
-    K4 per warp whose flow needs a gradient (every warp but frame 0's zero
-    flow)."""
-    return {"K2": t + 1 + (t if remat else 0), "K3": t - 1, "K4": t}
+    (every HR warp but frame 0's zero carry; not the loss's LR data), each
+    fused with K4 since its flow needs one too; K4 alone for the loss's
+    warp, whose flow alone needs a gradient (frame 0's zero flow needs
+    none)."""
+    return {"K2": t + 1 + (t if remat else 0), "K3": t - 1, "K3+K4": t - 1,
+            "K4": 1}
 
 
 def phase_train(rng, card):
     """Five full-width training steps through VSRModel.train. Returns the
-    K2/K3/K4 launch counts of that run."""
+    K2/K3/K4 launch counts of that run (and the K3 launches fused with
+    K4)."""
     import torch
 
     from tecogan_tpu_torch.models import VSRModel
@@ -1272,7 +1378,7 @@ def phase_train(rng, card):
         batch = model.prepare_training_data({"gt": batches[0]})
         _profile(lambda: model.train(batch), "one training step", card,
                  ("warp_planes_kernel", "warp_dimage_kernel",
-                  "warp_dflow_kernel"))
+                  "warp_dimage_dflow_kernel", "warp_dflow_kernel"))
 
         model.save(model.state["step"])
         model.save_training_state_now(model.state["step"])
@@ -1293,7 +1399,7 @@ def phase_train(rng, card):
         print(f"save + resume: G_iter{state['step']}.npz and "
               f"state_iter{state['step']}.pth written; a fresh model resumed "
               f"step {state['step']} with identical weights and Adam state")
-    return {k: launches[k] for k in ("K2", "K3", "K4")}
+    return {k: launches[k] for k in ("K2", "K3", "K3+K4", "K4")}
 
 
 def _one_step(sd, batch, device, mixed):
@@ -1416,6 +1522,10 @@ def main() -> int:
             ("K3", "warp_dimage", "tecogan_tpu_torch/csrc/warp_vjp.cu",
              "tecogan_tpu/ops/warp_vjp.py:156"),
             ("K4", "warp_dflow", "tecogan_tpu_torch/csrc/warp_vjp.cu",
+             "tecogan_tpu/ops/warp_vjp.py:288"),
+            ("K3+K4", "warp_dimage_dflow",
+             "tecogan_tpu_torch/csrc/warp_vjp.cu",
+             "tecogan_tpu/ops/warp_vjp.py:156, "
              "tecogan_tpu/ops/warp_vjp.py:288"),
             ("K5", "warp_phases", "tecogan_tpu_torch/csrc/warp_phases.cu",
              "tecogan_tpu/ops/warp_pallas.py:324")):

@@ -24,6 +24,15 @@ __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even
 }
+// two neighbouring elements in one store; p aligned to the pair's size
+__device__ __forceinline__ void store_f32x2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_f32x2(__nv_bfloat16* p, float a,
+                                            float b) {
+  // each rounded to nearest even, a at p[0]
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 // Element strides of a logically (n, c, H, W) tensor, or of an (n, H, W, 2)
 // flow in the order (n, h, w, k).
@@ -63,37 +72,11 @@ __device__ __forceinline__ Taps taps_of(float fx, float fy, int i, int j,
   return t;
 }
 
-// The stencil of output pixel (b, i, j), its flow read through strides.
-template <typename TF>
-__device__ __forceinline__ Taps taps_at(const TF* flow, const Strides4& fs,
-                                        int b, int i, int j, int H, int W) {
-  const TF* f = flow + b * fs.s0 + i * fs.s1 + j * fs.s2;
-  return taps_of(load_f32(f), load_f32(f + fs.s3), i, j, H, W);
-}
-
-// Pixel index -> (b, i, j) for a grid of one thread per output pixel.
-__device__ __forceinline__ bool pixel_of(int n, int H, int W, int& b, int& i,
-                                         int& j) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)n * H * W) return false;
-  j = (int)(idx % W);
-  const int64_t r = idx / W;
-  i = (int)(r % H);
-  b = (int)(r / H);
-  return true;
-}
-
-constexpr int kThreads = 256;
-
-inline unsigned int blocks_for(int n, int H, int W) {
-  return (unsigned int)(((int64_t)n * H * W + kThreads - 1) / kThreads);
-}
-
-// The row tiles of the gathers K1, K2 and K5: a block of kTileRows warps,
-// one output row each; lane l of a warp takes the kTileSteps pixels 32
-// output columns apart at tile column l, 32 + l, ..., so each warp-wide load
-// or store covers 32 neighbouring columns. The grid is (column tiles, row
-// tiles, images), and a thread decodes its pixels from blockIdx and
+// The row tiles of the gathers K1, K2, K4 and K5: a block of kTileRows
+// warps, one output row each; lane l of a warp takes the kTileSteps pixels
+// 32 output columns apart at tile column l, 32 + l, ..., so each warp-wide
+// load or store covers 32 neighbouring columns. The grid is (column tiles,
+// row tiles, images), and a thread decodes its pixels from blockIdx and
 // threadIdx without a division. ops/warp_cuda.py::tile_plan mirrors it. The
 // scatter K3 takes the same tiles with one pixel a lane.
 constexpr int kTileRows = 4;

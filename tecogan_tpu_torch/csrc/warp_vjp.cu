@@ -61,16 +61,36 @@
 // 3.35 TB/s), far below the launch and the two grid barriers.
 //
 // K4, the adjoint with respect to the flow. The TPU kernel gathers the four
-// tap values with the forward's slab enumeration; here one thread per
-// pixel reads them directly and applies warp_vjp.py's formula
+// tap values with the forward's slab enumeration and leaves the sum over
+// channels to XLA; here a thread reads a pixel's taps directly and applies
+// warp_vjp.py's formula
 //     dfx = g * m_x * ((1-wy)(A01-A00) + wy(A11-A10))
 //     dfy = g * m_y * ((1-wx)(A10-A00) + wx(A11-A01))
 // with m_x = (j + fx >= 0), m_y = (i + fy >= 0): below 0 the clamped
 // coordinate does not move with the flow; at the upper clamp the taps
-// coincide and the difference vanishes by itself. The sum over channels
-// happens in the thread (the TPU kernel leaves it to XLA), so the output
-// is written once, fp32 (n, H, W, 2) in the order dfx, dfy. Deterministic.
-// Bound: bytes (two images and the flow read, 8 B per pixel written).
+// coincide and the difference vanishes by itself. The channels are added in
+// order from +0.0 (fp32, no FMA), as the plain version
+// (ops/warp_vjp.py::warp_dflow_reference) adds them, so the two agree bit for
+// bit, and the output, a dense (n, H, W, 2) in the order dfx, dfy, is
+// written once, in the flow's dtype (one pair store a pixel). Deterministic.
+// Two forms:
+// - inside K3's cooperative launch (the template flag kFlow), whenever both
+//   adjoints are wanted: the launch also reads the image x and writes the
+//   flow adjoint. When the grid holds every tile, a lane computes it from
+//   the flow and g it already holds, before the first barrier, which waits
+//   for the slowest block anyway; else phase 1's loop over the tiles, which
+//   reads the flow and g, does it. A non-finite g changes only K3's branch:
+//   the flow adjoint stays a plain gather. K3's fixed cost (launch, fill,
+//   max, barriers, convert) is then paid once for both adjoints;
+// - alone, when only the flow needs a gradient (the warping loss warps
+//   data), on K1/K2's row tiles: a warp per output row, kTileSteps pixels a
+//   lane, no division, the RGB channel count a template parameter (other
+//   counts loop), 32-bit offsets from one image base (the wrapper checks
+//   the largest); every tap and cotangent load of a lane is issued before
+//   the first is used.
+// Bound: bytes (g and x read, the flow read and its adjoint written; 0.66 MB
+// and 0.196 us at (2, 3, 128, 128) bf16; fused with K3, 0.85 MB and
+// 0.254 us), so at the training shapes the launch is the floor.
 
 #include <cooperative_groups.h>
 
@@ -220,14 +240,81 @@ struct Pixel {
   }
 };
 
-// K3 in one cooperative launch. sums holds n*c*H*W int64 words laid out by
-// the output's strides (dense), then one 32-bit slot per block.
-template <typename TG, typename TF, typename TO, int C>
-__global__ void __launch_bounds__(kBlock)
-    warp_dimage_kernel(const TG* __restrict__ g, const TF* __restrict__ flow,
-                       TO* __restrict__ out, long long* __restrict__ sums,
-                       int n, int c, int H, int W, Strides4 gs, Strides4 os,
-                       Strides4 fs) {
+// K4's stencil of one pixel: its taps' offsets within a channel of x (top
+// left, top right, bottom left, bottom right), their fractional weights,
+// and the masks m_x, m_y (1 where the unclamped coordinate is >= 0).
+struct FlowStencil {
+  int o[4];
+  float wy, wx, mx, my;
+};
+
+__device__ __forceinline__ FlowStencil flow_stencil(float fx, float fy,
+                                                    int i, int j, int H,
+                                                    int W, int x2, int x3) {
+  const Taps t = taps_of(fx, fy, i, j, H, W);
+  FlowStencil s;
+  s.o[0] = t.y0 * x2 + t.x0 * x3;
+  s.o[1] = t.y0 * x2 + t.x1 * x3;
+  s.o[2] = t.y1 * x2 + t.x0 * x3;
+  s.o[3] = t.y1 * x2 + t.x1 * x3;
+  s.wy = t.wy;
+  s.wx = t.wx;
+  s.mx = __fadd_rn((float)j, fx) >= 0.0f ? 1.0f : 0.0f;
+  s.my = __fadd_rn((float)i, fy) >= 0.0f ? 1.0f : 0.0f;
+  return s;
+}
+
+// One pixel's four taps in the G channels of x from ch0: all loaded
+// before the first is used, then added into its flow adjoint.
+template <int G>
+struct FlowTaps {
+  float a[G][4];
+
+  template <typename TX>
+  __device__ __forceinline__ void load(const TX* __restrict__ src,
+                                       const FlowStencil& s, int x1,
+                                       int ch0) {
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        a[q][r] = load_f32(src + ((ch0 + q) * x1 + s.o[r]));
+      }
+    }
+  }
+
+  // add (g * m) * (tap differences) of each channel, in channel order
+  __device__ __forceinline__ void add(const FlowStencil& s, const float* gv,
+                                      float& dfx, float& dfy) const {
+    const float wy0 = __fsub_rn(1.0f, s.wy);
+    const float wx0 = __fsub_rn(1.0f, s.wx);
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      const float tx =
+          __fadd_rn(__fmul_rn(wy0, __fsub_rn(a[q][1], a[q][0])),
+                    __fmul_rn(s.wy, __fsub_rn(a[q][3], a[q][2])));
+      const float ty =
+          __fadd_rn(__fmul_rn(wx0, __fsub_rn(a[q][2], a[q][0])),
+                    __fmul_rn(s.wx, __fsub_rn(a[q][3], a[q][1])));
+      dfx = __fadd_rn(dfx, __fmul_rn(__fmul_rn(gv[q], s.mx), tx));
+      dfy = __fadd_rn(dfy, __fmul_rn(__fmul_rn(gv[q], s.my), ty));
+    }
+  }
+};
+
+// K3 in one cooperative launch, with K4 when kFlow: the body of both
+// kernels below. sums holds n*c*H*W int64 words laid out by the output's
+// strides (dense), then one 32-bit slot per block. kFlow: the image x
+// (strides xs, the output's dtype) is read and the flow adjoint written to
+// dflow, a dense (n, H, W, 2) in the flow's dtype; else x and dflow are
+// unused.
+template <typename TG, typename TF, typename TO, int C, bool kFlow>
+__device__ __forceinline__ void dimage_body(
+    const TG* __restrict__ g, const TF* __restrict__ flow,
+    TO* __restrict__ out, long long* __restrict__ sums,
+    const TO* __restrict__ x, TF* __restrict__ dflow, int n, int c, int H,
+    int W, const Strides4& gs, const Strides4& os, const Strides4& fs,
+    const Strides4& xs) {
   constexpr int G = C > 0 ? C : 1;
   __shared__ unsigned red[kTileRows];
   cg::grid_group grid = cg::this_grid();
@@ -246,8 +333,25 @@ __global__ void __launch_bounds__(kBlock)
   const bool one_pass = C > 0 && gridDim.x * 32 >= W &&
                         gridDim.y * kTileRows >= H && gridDim.z >= n;
   const bool mine = one_pass && i1 < H && blockIdx.x * 32 < W;
+  // K4 (kFlow): pixel (b, i, j)'s stencil from the flow p holds, its terms
+  // for the channels of p (from ch0) from x's taps, and its store
+  auto stencil = [&](const Pixel<G, TG, TF>& p, int i, int j) {
+    return flow_stencil(p.fx, p.fy, i, min(j, W - 1), H, W, (int)xs.s2,
+                        (int)xs.s3);
+  };
+  auto flow_terms = [&](const Pixel<G, TG, TF>& p, const FlowStencil& st,
+                        int b, int ch0, float& dfx, float& dfy) {
+    FlowTaps<G> a;
+    a.load(x + b * xs.s0, st, (int)xs.s1, ch0);
+    a.add(st, p.gv, dfx, dfy);
+  };
+  auto store_dflow = [&](int b, int i, int j, float dfx, float dfy) {
+    if (j < W) {
+      store_f32x2(dflow + (((int64_t)b * H + i) * W + j) * 2, dfx, dfy);
+    }
+  };
 
-  // phase 1: zero the sums; this block's max over the bits of |g|
+  // phase 1: zero the sums; this block's max over the bits of |g|; K4
   for (int64_t e = first; e < numel; e += step) sums[e] = 0;
   unsigned m = 0;
   Pixel<G, TG, TF> px;
@@ -255,14 +359,26 @@ __global__ void __launch_bounds__(kBlock)
     if (mine) {
       px.load(g, flow, gs, fs, blockIdx.z, i1, j1, W, 0);
       m = px.max_bits();
+      if (kFlow) {
+        float dfx = 0.0f, dfy = 0.0f;
+        flow_terms(px, stencil(px, i1, j1), blockIdx.z, 0, dfx, dfy);
+        store_dflow(blockIdx.z, i1, j1, dfx, dfy);
+      }
     }
   } else {
     for_each_tile(n, H, W, [&](int b, int i, int j) {
+      float dfx = 0.0f, dfy = 0.0f;
+      FlowStencil st{};
       for (int ch0 = 0; ch0 < (C > 0 ? C : c); ch0 += G) {
         Pixel<G, TG, TF> p;
         p.load(g, flow, gs, fs, b, i, j, W, ch0);
         m = max(m, p.max_bits());
+        if (kFlow) {
+          if (ch0 == 0) st = stencil(p, i, j);
+          flow_terms(p, st, b, ch0, dfx, dfy);
+        }
       }
+      if (kFlow) store_dflow(b, i, j, dfx, dfy);
     });
   }
   m = block_max(m, red);
@@ -325,13 +441,47 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// K3 alone
 template <typename TG, typename TF, typename TO, int C>
-int run_dimage(const TG* g, const TF* flow, TO* out, long long* sums, int n,
-               int c, int H, int W, int slots, Strides4 gs, Strides4 os,
-               Strides4 fs, cudaStream_t stream) {
-  auto kernel = warp_dimage_kernel<TG, TF, TO, C>;
-  // the blocks that fit on the device at once, from the occupancy query,
-  // cached per instantiation and device
+__global__ void __launch_bounds__(kBlock)
+    warp_dimage_kernel(const TG* __restrict__ g, const TF* __restrict__ flow,
+                       TO* __restrict__ out, long long* __restrict__ sums,
+                       int n, int c, int H, int W, Strides4 gs, Strides4 os,
+                       Strides4 fs) {
+  dimage_body<TG, TF, TO, C, false>(g, flow, out, sums, nullptr, nullptr, n,
+                                    c, H, W, gs, os, fs, Strides4{});
+}
+
+// K3 and K4 in one launch, the image, the cotangent and the image adjoint
+// in one dtype. No __launch_bounds__: with K3's, ptxas held the RGB
+// instantiations to 64 registers and spilled; without, its limit for
+// blocks of up to 1024 threads is the same 64, and it allocates them
+// without a spill (CUDA 12.8; chip_smoke.py prints the build's report).
+template <typename TX, typename TF, int C>
+__global__ void warp_dimage_dflow_kernel(
+    const TX* __restrict__ g, const TF* __restrict__ flow,
+    TX* __restrict__ out, long long* __restrict__ sums,
+    const TX* __restrict__ x, TF* __restrict__ dflow, int n, int c, int H,
+    int W, Strides4 gs, Strides4 os, Strides4 fs, Strides4 xs) {
+  dimage_body<TX, TF, TX, C, true>(g, flow, out, sums, x, dflow, n, c, H, W,
+                                   gs, os, fs, xs);
+}
+
+// The kernel of K3 alone, or of K3 with K4 (kFlow)
+template <typename TG, typename TF, typename TO, int C, bool kFlow>
+constexpr auto dimage_kernel() {
+  if constexpr (kFlow) {
+    return warp_dimage_dflow_kernel<TG, TF, C>;
+  } else {
+    return warp_dimage_kernel<TG, TF, TO, C>;
+  }
+}
+
+// The blocks of dimage_kernel<TG, TF, TO, C, kFlow> that fit on the
+// current device at once, from the occupancy query, cached per
+// instantiation and device: the cap of its cooperative grid.
+template <typename TG, typename TF, typename TO, int C, bool kFlow>
+int resident_blocks(int* blocks) {
   static int resident[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -339,124 +489,241 @@ int run_dimage(const TG* g, const TF* flow, TO* out, long long* sums, int n,
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!resident[dev]) {
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kBlock, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dimage_kernel<TG, TF, TO, C, kFlow>(), kBlock, 0);
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }
     if (err != cudaSuccess) return (int)err;
     resident[dev] = per_sm * sms;
   }
-  const int cap = min(resident[dev], slots);
+  *blocks = resident[dev];
+  return 0;
+}
+
+// A launch of K3 as its launcher unpacked it (x, dflow and xs only with the
+// flow adjoint)
+template <typename TG, typename TF, typename TO>
+struct DimageCall {
+  const TG* g;
+  const TF* flow;
+  TO* out;
+  long long* sums;
+  const TO* x;
+  TF* dflow;
+  int n, c, H, W, slots;
+  Strides4 gs, os, fs, xs;
+  cudaStream_t stream;
+};
+
+template <typename TG, typename TF, typename TO, int C, bool kFlow>
+int run_dimage(DimageCall<TG, TF, TO> k) {
+  int resident = 0;
+  const int err = resident_blocks<TG, TF, TO, C, kFlow>(&resident);
+  if (err) return err;
+  const int cap = min(resident, k.slots);
   if (cap < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   // (column tiles, row tiles, images), capped in that order of priority;
   // more row blocks where the tiles are fewer than the blocks that convert
   // kUnroll elements a thread; ops/warp_cuda.py::stride_grid mirrors it
-  const int64_t numel = (int64_t)n * c * H * W;
+  const int64_t numel = (int64_t)k.n * k.c * k.H * k.W;
   const int64_t convert = (numel + kUnroll * kBlock - 1) / (kUnroll * kBlock);
   dim3 grid;
-  grid.x = min((W + 31) / 32, cap);
-  grid.z = min(n, cap / (int)grid.x);
+  grid.x = min((k.W + 31) / 32, cap);
+  grid.z = min(k.n, cap / (int)grid.x);
   const int xz = (int)(grid.x * grid.z);
   grid.y = (int)std::min<int64_t>(
-      std::max<int64_t>((H + kTileRows - 1) / kTileRows,
+      std::max<int64_t>((k.H + kTileRows - 1) / kTileRows,
                         (convert + xz - 1) / xz),
       cap / xz);
-  void* args[] = {&g, &flow, &out, &sums, &n, &c, &H, &W, &gs, &os, &fs};
-  return (int)cudaLaunchCooperativeKernel((const void*)kernel, grid,
-                                          dim3(32, kTileRows), args, 0,
-                                          stream);
+  void* k3[] = {&k.g, &k.flow, &k.out, &k.sums, &k.n,  &k.c,
+                &k.H, &k.W,    &k.gs,  &k.os,   &k.fs};
+  void* fused[] = {&k.g, &k.flow, &k.out, &k.sums, &k.x,  &k.dflow, &k.n,
+                   &k.c, &k.H,    &k.W,   &k.gs,   &k.os, &k.fs,    &k.xs};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)dimage_kernel<TG, TF, TO, C, kFlow>(), grid,
+      dim3(32, kTileRows), kFlow ? fused : k3, 0, k.stream);
+}
+
+// RGB (every path) takes the kernel with the channels unrolled; any other
+// count loops over them. With the flow adjoint an image of no channels
+// still writes it (zeros).
+template <bool kFlow, typename TG, typename TF, typename TO>
+int run_dimage_any_c(const DimageCall<TG, TF, TO>& k) {
+  if ((int64_t)k.n * (kFlow ? 1 : k.c) * k.H * k.W == 0) return 0;
+  return k.c == 3 ? run_dimage<TG, TF, TO, 3, kFlow>(k)
+                  : run_dimage<TG, TF, TO, 0, kFlow>(k);
 }
 
 // K3: (g, flow, out, scratch, n, c, H, W, slots, g's, the output's and the
 // flow's strides, stream)
 template <typename TG, typename TF, typename TO>
 int launch_dimage(const int64_t* a) {
-  const int n = (int)a[4], c = (int)a[5], H = (int)a[6], W = (int)a[7];
-  if ((int64_t)n * c * H * W == 0) return 0;
-  const Strides4 gs = strides_from(a + 9), os = strides_from(a + 13),
-                 fs = strides_from(a + 17);
-  cudaStream_t stream = arg_ptr<CUstream_st>(a, 21);
-  const TG* g = arg_ptr<const TG>(a, 0);
-  const TF* flow = arg_ptr<const TF>(a, 1);
-  TO* out = arg_ptr<TO>(a, 2);
-  long long* sums = arg_ptr<long long>(a, 3);
-  const int slots = (int)a[8];
-  return c == 3 ? run_dimage<TG, TF, TO, 3>(g, flow, out, sums, n, c, H, W,
-                                            slots, gs, os, fs, stream)
-                : run_dimage<TG, TF, TO, 0>(g, flow, out, sums, n, c, H, W,
-                                            slots, gs, os, fs, stream);
+  DimageCall<TG, TF, TO> k{};
+  k.g = arg_ptr<const TG>(a, 0);
+  k.flow = arg_ptr<const TF>(a, 1);
+  k.out = arg_ptr<TO>(a, 2);
+  k.sums = arg_ptr<long long>(a, 3);
+  k.n = (int)a[4], k.c = (int)a[5], k.H = (int)a[6], k.W = (int)a[7];
+  k.slots = (int)a[8];
+  k.gs = strides_from(a + 9);
+  k.os = strides_from(a + 13);
+  k.fs = strides_from(a + 17);
+  k.stream = arg_ptr<CUstream_st>(a, 21);
+  return run_dimage_any_c<false>(k);
 }
 
+// K3 and K4 in one launch: K3's arguments with x and the flow adjoint
+// after the scratch, and x's strides after the flow's: (g, flow, dx,
+// scratch, x, dflow, n, c, H, W, slots, g's, dx's, the flow's and x's
+// strides, stream)
 template <typename TX, typename TF>
-__global__ void warp_dflow_kernel(const TX* __restrict__ g,
-                                  const TX* __restrict__ x,
-                                  const TF* __restrict__ flow,
-                                  float* __restrict__ out, int n, int c,
-                                  int H, int W, Strides4 gs, Strides4 xs,
-                                  Strides4 fs) {
-  int b, i, j;
-  if (!pixel_of(n, H, W, b, i, j)) return;
-  const Taps t = taps_at(flow, fs, b, i, j, H, W);
-  const float wy0 = __fsub_rn(1.0f, t.wy);
-  const float wx0 = __fsub_rn(1.0f, t.wx);
-  const float m_x = __fadd_rn((float)j, t.fx) >= 0.0f ? 1.0f : 0.0f;
-  const float m_y = __fadd_rn((float)i, t.fy) >= 0.0f ? 1.0f : 0.0f;
-  const int64_t o00 = t.y0 * xs.s2 + t.x0 * xs.s3;
-  const int64_t o01 = t.y0 * xs.s2 + t.x1 * xs.s3;
-  const int64_t o10 = t.y1 * xs.s2 + t.x0 * xs.s3;
-  const int64_t o11 = t.y1 * xs.s2 + t.x1 * xs.s3;
-
-  const TX* gp = g + b * gs.s0 + i * gs.s2 + j * gs.s3;
-  const TX* src = x + b * xs.s0;
-  float dfx = 0.0f;
-  float dfy = 0.0f;
-  for (int ch = 0; ch < c; ++ch) {
-    const TX* p = src + ch * xs.s1;
-    const float a00 = load_f32(p + o00);
-    const float a01 = load_f32(p + o01);
-    const float a10 = load_f32(p + o10);
-    const float a11 = load_f32(p + o11);
-    const float gv = load_f32(gp + ch * gs.s1);
-    const float tx = __fadd_rn(__fmul_rn(wy0, __fsub_rn(a01, a00)),
-                               __fmul_rn(t.wy, __fsub_rn(a11, a10)));
-    const float ty = __fadd_rn(__fmul_rn(wx0, __fsub_rn(a10, a00)),
-                               __fmul_rn(t.wx, __fsub_rn(a11, a01)));
-    dfx = __fadd_rn(dfx, __fmul_rn(__fmul_rn(gv, m_x), tx));
-    dfy = __fadd_rn(dfy, __fmul_rn(__fmul_rn(gv, m_y), ty));
-  }
-  float* o = out + (((int64_t)b * H + i) * W + j) * 2;
-  o[0] = dfx;
-  o[1] = dfy;
+int launch_dimage_dflow(const int64_t* a) {
+  DimageCall<TX, TF, TX> k{};
+  k.g = arg_ptr<const TX>(a, 0);
+  k.flow = arg_ptr<const TF>(a, 1);
+  k.out = arg_ptr<TX>(a, 2);
+  k.sums = arg_ptr<long long>(a, 3);
+  k.x = arg_ptr<const TX>(a, 4);
+  k.dflow = arg_ptr<TF>(a, 5);
+  k.n = (int)a[6], k.c = (int)a[7], k.H = (int)a[8], k.W = (int)a[9];
+  k.slots = (int)a[10];
+  k.gs = strides_from(a + 11);
+  k.os = strides_from(a + 15);
+  k.fs = strides_from(a + 19);
+  k.xs = strides_from(a + 23);
+  k.stream = arg_ptr<CUstream_st>(a, 27);
+  return run_dimage_any_c<true>(k);
 }
 
+// The co-resident blocks of K3's launch, or of the fused one (kFlow), for
+// c channels: (c, the address of an int64 that receives them)
+template <typename TG, typename TF, typename TO, bool kFlow>
+int query_resident(const int64_t* a) {
+  int blocks = 0;
+  const int err = a[0] == 3
+                      ? resident_blocks<TG, TF, TO, 3, kFlow>(&blocks)
+                      : resident_blocks<TG, TF, TO, 0, kFlow>(&blocks);
+  *arg_ptr<int64_t>(a, 1) = blocks;
+  return err;
+}
+
+// K4 alone: kTileSteps pixels of one row in C channels (C = 0: c
+// channels, one at a time), on K2's row tiles.
+template <typename TX, typename TF, int C>
+__global__ void __launch_bounds__(32 * kTileRows)
+    warp_dflow_kernel(const TX* __restrict__ g, const TX* __restrict__ x,
+                      const TF* __restrict__ flow, TF* __restrict__ out,
+                      int c, int H, int W, Strides4 gs, Strides4 xs,
+                      Strides4 fs) {
+  const int i = blockIdx.y * kTileRows + threadIdx.y;
+  if (i >= H) return;
+  const int b = blockIdx.z;
+  // the images' bases and the flow row in 64 bits; offsets within them
+  // 32-bit (the wrapper checks the largest)
+  const TX* src = x + b * xs.s0;
+  const TX* gp = g + b * gs.s0;
+  const TF* f = flow + b * fs.s0 + i * fs.s1;
+  const int x1 = (int)xs.s1, x2 = (int)xs.s2, x3 = (int)xs.s3;
+  const int g1 = (int)gs.s1, g2 = i * (int)gs.s2, g3 = (int)gs.s3;
+  const int fj = (int)fs.s2, fk = (int)fs.s3;
+  const int j0 = blockIdx.x * (32 * kTileSteps) + threadIdx.x;
+
+  // a column past W reads column W-1 and stores nothing
+  int jc[kTileSteps];
+  float fx[kTileSteps], fy[kTileSteps];
+#pragma unroll
+  for (int k = 0; k < kTileSteps; ++k) {
+    jc[k] = min(j0 + 32 * k, W - 1);
+    fx[k] = load_f32(f + jc[k] * fj);
+    fy[k] = load_f32(f + (jc[k] * fj + fk));
+  }
+  FlowStencil st[kTileSteps];
+  float dfx[kTileSteps], dfy[kTileSteps];
+#pragma unroll
+  for (int k = 0; k < kTileSteps; ++k) {
+    st[k] = flow_stencil(fx[k], fy[k], i, jc[k], H, W, x2, x3);
+    dfx[k] = 0.0f;
+    dfy[k] = 0.0f;
+  }
+  // G channels at a time, every tap and cotangent load of a group in
+  // flight before the first is used: all C of them when the count is
+  // fixed, else one
+  constexpr int G = C > 0 ? C : 1;
+  for (int ch0 = 0; ch0 < (C > 0 ? C : c); ch0 += G) {
+    FlowTaps<G> a[kTileSteps];
+    float gv[kTileSteps][G];
+#pragma unroll
+    for (int k = 0; k < kTileSteps; ++k) {
+      a[k].load(src, st[k], x1, ch0);
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        gv[k][q] = load_f32(gp + ((ch0 + q) * g1 + g2 + jc[k] * g3));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kTileSteps; ++k) {
+      a[k].add(st[k], gv[k], dfx[k], dfy[k]);
+    }
+  }
+  TF* dst = out + ((int64_t)b * H + i) * W * 2;
+#pragma unroll
+  for (int k = 0; k < kTileSteps; ++k) {
+    const int j = j0 + 32 * k;
+    if (j < W) store_f32x2(dst + 2 * j, dfx[k], dfy[k]);
+  }
+}
+
+// K4 alone: (g, x, flow, out, n, c, H, W, g's, x's and the flow's strides,
+// stream)
 template <typename TX, typename TF>
 int launch_dflow(const int64_t* a) {
   const int n = (int)a[4], c = (int)a[5], H = (int)a[6], W = (int)a[7];
   if ((int64_t)n * H * W == 0) return 0;
-  warp_dflow_kernel<TX, TF><<<blocks_for(n, H, W), kThreads, 0,
-                              arg_ptr<CUstream_st>(a, 20)>>>(
+  constexpr int kTileW = 32 * kTileSteps;
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileRows - 1) / kTileRows,
+                  n);
+  auto kernel = c == 3 ? warp_dflow_kernel<TX, TF, 3>
+                       : warp_dflow_kernel<TX, TF, 0>;
+  kernel<<<grid, dim3(32, kTileRows), 0, arg_ptr<CUstream_st>(a, 20)>>>(
       arg_ptr<const TX>(a, 0), arg_ptr<const TX>(a, 1),
-      arg_ptr<const TF>(a, 2), arg_ptr<float>(a, 3), n, c, H, W,
+      arg_ptr<const TF>(a, 2), arg_ptr<TF>(a, 3), c, H, W,
       strides_from(a + 8), strides_from(a + 12), strides_from(a + 16));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points, each taking one int64 array and returning the
-// launch's CUDA error code. K3, one per (cotangent dtype, flow dtype,
-// output dtype): (g, flow, out, scratch, n, c, H, W, slots, 12 element
-// strides: g's and the output's in (n, c, H, W) order, then the flow's in
-// (n, H, W, 2) order, stream); the output is dense (any order of its
-// dimensions), the scratch int64 of n*c*H*W + slots words, and slots at
-// least the blocks of the launch (the card's SMs times 2048 / kBlock
-// always suffice). K4, one per (image/cotangent dtype, flow dtype): (g, x,
-// flow, out, n, c, H, W, g's, x's and the flow's strides, stream); the
-// output is a contiguous fp32 (n, H, W, 2).
-#define TECOGAN_DIMAGE_ENTRY(NAME, TG, TF, TO) \
-  extern "C" int NAME(const int64_t* args) {  \
-    return launch_dimage<TG, TF, TO>(args);    \
+// Plain C entry points, each taking one int64 array and returning a CUDA
+// error code. K3, one per (cotangent dtype, flow dtype, output dtype):
+// (g, flow, out, scratch, n, c, H, W, slots, 12 element strides: g's and
+// the output's in (n, c, H, W) order, then the flow's in (n, H, W, 2)
+// order, stream); the output is dense (any order of its dimensions), the
+// scratch int64 of n*c*H*W + slots words, and slots at least the blocks of
+// the launch (the card's SMs times 2048 / kBlock always suffice). K3 and
+// K4 in one launch, one per (image/cotangent dtype, flow dtype), the image
+// adjoint dx in the image's dtype: (g, flow, dx, scratch, x, dflow, n, c,
+// H, W, slots, 16 element strides: g's, dx's, the flow's and x's, stream).
+// K4 alone, one per (image/cotangent dtype, flow dtype): (g, x, flow, out,
+// n, c, H, W, g's, x's and the flow's strides, stream). The flow adjoint
+// (dflow, out) is a dense (n, H, W, 2) in the flow's dtype, aligned to its
+// element pairs (as torch.empty allocates it). Each launch entry point
+// NAME of K3 and of the fused launch has a companion NAME_resident: (c,
+// the address of an int64) receives the blocks the launch can hold at
+// once on the current device, the cap of its grid.
+#define TECOGAN_DIMAGE_ENTRY(NAME, TG, TF, TO)           \
+  extern "C" int NAME(const int64_t* args) {             \
+    return launch_dimage<TG, TF, TO>(args);              \
+  }                                                      \
+  extern "C" int NAME##_resident(const int64_t* args) {  \
+    return query_resident<TG, TF, TO, false>(args);      \
+  }
+#define TECOGAN_DIMAGE_DFLOW_ENTRY(NAME, TX, TF)         \
+  extern "C" int NAME(const int64_t* args) {             \
+    return launch_dimage_dflow<TX, TF>(args);            \
+  }                                                      \
+  extern "C" int NAME##_resident(const int64_t* args) {  \
+    return query_resident<TX, TF, TX, true>(args);       \
   }
 #define TECOGAN_DFLOW_ENTRY(NAME, TX, TF)     \
   extern "C" int NAME(const int64_t* args) { \
@@ -472,6 +739,10 @@ TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_bf16_f32_f32, bf16, float, float)
 TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_bf16_f32_bf16, bf16, float, bf16)
 TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_bf16_bf16_f32, bf16, bf16, float)
 TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_bf16_bf16_bf16, bf16, bf16, bf16)
+TECOGAN_DIMAGE_DFLOW_ENTRY(tecogan_warp_dimage_dflow_f32_f32, float, float)
+TECOGAN_DIMAGE_DFLOW_ENTRY(tecogan_warp_dimage_dflow_f32_bf16, float, bf16)
+TECOGAN_DIMAGE_DFLOW_ENTRY(tecogan_warp_dimage_dflow_bf16_f32, bf16, float)
+TECOGAN_DIMAGE_DFLOW_ENTRY(tecogan_warp_dimage_dflow_bf16_bf16, bf16, bf16)
 TECOGAN_DFLOW_ENTRY(tecogan_warp_dflow_f32_f32, float, float)
 TECOGAN_DFLOW_ENTRY(tecogan_warp_dflow_f32_bf16, float, bf16)
 TECOGAN_DFLOW_ENTRY(tecogan_warp_dflow_bf16_f32, bf16, float)

@@ -20,8 +20,14 @@ and whose backward is two kernels, the counterpart of the custom VJP
   writes the output in the image's dtype; the wrapper only allocates.
 - K4, ``warp_dflow``: the adjoint with respect to the flow, replacing
   ``_dflow`` (kernel ``_dflow_kernel``), from the four tap values, masked
-  where the unclamped coordinate is below 0 and summed over channels; fp32,
-  returned in the flow's dtype. Deterministic.
+  where the unclamped coordinate is below 0 and summed over channels in
+  order in fp32; written once in the flow's dtype. Deterministic, and bit
+  for bit ``warp_dflow_reference`` (also its CPU path). On the card one
+  kernel launch on K2's row tiles.
+- ``warp_dimage_dflow``: both adjoints in K3's cooperative launch, which
+  then also reads the image and writes the flow adjoint (the backward of
+  every warp whose image and flow both need a gradient): K3's fixed cost
+  is paid once for both. Bit for bit the two kernels' results.
 
 Images are logically (n, c, H, W) with any strides (NCHW or channels_last)
 and flows (n, H, W, 2). There is no size gate and no gather fallback: CPU
@@ -31,16 +37,18 @@ anything else raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from .warp_cuda import (_DTYPE_TAG, all_on_cpu, bilinear_taps,
                         check_cuda_warp_args, check_offsets, gather_tap,
-                        launch, warp_rgb)
+                        launch, tile_plan, warp_rgb)
 
-__all__ = ["backward_warp_diff", "dimage_scale", "warp_dimage",
-           "warp_dimage_reference", "warp_dflow", "warp_dflow_reference"]
+__all__ = ["backward_warp_diff", "dimage_resident_blocks", "dimage_scale",
+           "warp_dimage", "warp_dimage_dflow", "warp_dimage_reference",
+           "warp_dflow", "warp_dflow_reference"]
 
 # the most blocks of K3 (4 warps each) an SM holds: 2048 threads
 _DIMAGE_BLOCKS_PER_SM = 16
@@ -110,9 +118,9 @@ def warp_dimage_reference(g: torch.Tensor, flow: torch.Tensor,
 
 def warp_dflow_reference(g: torch.Tensor, x: torch.Tensor,
                          flow: torch.Tensor) -> torch.Tensor:
-    """Plain K4: ``warp_vjp.py``'s tap-difference formula, summed over
-    channels in fp32; (n, H, W, 2) in the order dfx, dfy, in the flow's
-    dtype."""
+    """Plain K4: ``warp_vjp.py``'s tap-difference formula in fp32, the
+    channels added one at a time in order from +0.0, as the kernel adds
+    them; (n, H, W, 2) in the order dfx, dfy, in the flow's dtype."""
     h, w = x.shape[-2:]
     y0, x0, y1, x1, wy, wx = bilinear_taps(flow, h, w)
     f = flow.float()
@@ -126,9 +134,11 @@ def warp_dflow_reference(g: torch.Tensor, x: torch.Tensor,
     wy, wx = wy[:, None], wx[:, None]
     tx = (1.0 - wy) * (a01 - a00) + wy * (a11 - a10)
     ty = (1.0 - wx) * (a10 - a00) + wx * (a11 - a01)
-    gf = g.float()
-    dfx = ((gf * m_x) * tx).sum(1)
-    dfy = ((gf * m_y) * ty).sum(1)
+    tx, ty = (g.float() * m_x) * tx, (g.float() * m_y) * ty
+    dfx = torch.zeros_like(f[..., 0])
+    dfy = torch.zeros_like(f[..., 1])
+    for ch in range(x.shape[1]):
+        dfx, dfy = dfx + tx[:, ch], dfy + ty[:, ch]
     return torch.stack([dfx, dfy], dim=-1).to(flow.dtype)
 
 
@@ -140,13 +150,32 @@ def _dimage_slots(index: int) -> int:
     return sms * _DIMAGE_BLOCKS_PER_SM
 
 
+def dimage_resident_blocks(name: str, index: int, c: int) -> int:
+    """The blocks of K3's launch (or the fused one) behind the C entry point
+    ``name`` for ``c`` channels that CUDA device ``index`` holds at once,
+    from CUDA's occupancy query: the cap of its cooperative grid."""
+    blocks = ctypes.c_int64()
+    launch(f"{name}_resident", index, c, ctypes.addressof(blocks))
+    return blocks.value
+
+
+def _dimage_scratch(out: torch.Tensor, index: int) -> tuple:
+    """K3's scratch for an output ``out`` on CUDA device ``index``: one
+    int64 per output element and one slot per block; with the slots."""
+    slots = _dimage_slots(index)
+    return torch.empty(out.numel() + slots, dtype=torch.int64,
+                       device=out.device), slots
+
+
 def warp_dimage(g: torch.Tensor, flow: torch.Tensor,
                 x_dtype: torch.dtype) -> torch.Tensor:
     """K3: the warp's adjoint with respect to the image, for a cotangent g
     (n, c, H, W), any strides, and flow (n, H, W, 2); returned in
     ``x_dtype``, in g's memory format. CPU tensors take
     ``warp_dimage_reference``; CUDA tensors one kernel launch, bit for bit
-    the same function. ``warp_dimage.launches`` counts kernel launches."""
+    the same function. ``warp_dimage.launches`` counts kernel launches,
+    and ``warp_dimage.dflow_launches`` those of them that also computed
+    the flow adjoint (``warp_dimage_dflow``)."""
     if all_on_cpu(g, flow):
         return warp_dimage_reference(g, flow, x_dtype)
     index = check_cuda_warp_args("warp_dimage", g, flow)
@@ -158,9 +187,7 @@ def warp_dimage(g: torch.Tensor, flow: torch.Tensor,
     out = torch.empty_like(g, dtype=x_dtype)
     gs, os_, fs = g.stride(), out.stride(), flow.stride()
     check_offsets("warp_dimage", g.shape, fs, gs, os_)
-    slots = _dimage_slots(index)
-    scratch = torch.empty(out.numel() + slots, dtype=torch.int64,
-                          device=g.device)
+    scratch, slots = _dimage_scratch(out, index)
     n, c, h, w = g.shape
     launch(name, index, g.data_ptr(), flow.data_ptr(), out.data_ptr(),
            scratch.data_ptr(), n, c, h, w, slots, *gs, *os_, *fs)
@@ -168,37 +195,88 @@ def warp_dimage(g: torch.Tensor, flow: torch.Tensor,
     return out
 
 
+def _check_dflow_args(name: str, g: torch.Tensor, x: torch.Tensor,
+                      flow: torch.Tensor) -> int:
+    """Raise unless g and x share a dtype and the shapes, devices and
+    dtypes pass ``check_cuda_warp_args``; return the device's index."""
+    index = check_cuda_warp_args(name, x, flow, g)
+    if g.dtype != x.dtype:
+        raise TypeError(f"{name}: g ({g.dtype}) and x ({x.dtype}) must "
+                        f"share a dtype")
+    return index
+
+
+def warp_dimage_dflow(g: torch.Tensor, x: torch.Tensor,
+                      flow: torch.Tensor) -> tuple:
+    """K3 and K4 in one launch: the warp's adjoints with respect to the
+    image and to the flow, for a cotangent g and image x (n, c, H, W) of
+    one dtype, any strides, and flow (n, H, W, 2). Returns (dx, dflow): dx
+    in x's dtype and g's memory format, dflow (n, H, W, 2) in the flow's
+    dtype. CPU tensors take ``warp_dimage_reference`` and
+    ``warp_dflow_reference``; CUDA tensors one kernel launch, bit for bit
+    the same pair, counted in ``warp_dimage.launches`` and
+    ``warp_dimage.dflow_launches``."""
+    if all_on_cpu(g, x, flow):
+        return (warp_dimage_reference(g, flow, x.dtype),
+                warp_dflow_reference(g, x, flow))
+    index = _check_dflow_args("warp_dimage_dflow", g, x, flow)
+    name = (f"tecogan_warp_dimage_dflow_{_DTYPE_TAG[x.dtype]}_"
+            f"{_DTYPE_TAG[flow.dtype]}")
+    n, c, h, w = g.shape
+    dx = torch.empty_like(g)
+    dflow = torch.empty((n, h, w, 2), dtype=flow.dtype, device=g.device)
+    gs, os_, fs, xs = g.stride(), dx.stride(), flow.stride(), x.stride()
+    check_offsets("warp_dimage_dflow", g.shape, fs, gs, os_, xs)
+    scratch, slots = _dimage_scratch(dx, index)
+    launch(name, index, g.data_ptr(), flow.data_ptr(), dx.data_ptr(),
+           scratch.data_ptr(), x.data_ptr(), dflow.data_ptr(), n, c, h, w,
+           slots, *gs, *os_, *fs, *xs)
+    warp_dimage.launches += 1
+    warp_dimage.dflow_launches += 1
+    return dx, dflow
+
+
+@functools.lru_cache(maxsize=256)
+def _dflow_plan(shape: torch.Size, g_strides: tuple, x_strides: tuple,
+                flow_strides: tuple) -> None:
+    """Raise unless K4's row-tile grid fits and its 32-bit offsets (g and
+    x of any strides) do. Cached."""
+    n, _, h, w = shape
+    tile_plan(n, h, w)
+    check_offsets("warp_dflow", shape, flow_strides, g_strides, x_strides)
+
+
 def warp_dflow(g: torch.Tensor, x: torch.Tensor,
                flow: torch.Tensor) -> torch.Tensor:
     """K4: the warp's adjoint with respect to the flow, for a cotangent g
     and image x (n, c, H, W) of one dtype, any strides, and flow
     (n, H, W, 2); returned (n, H, W, 2) in the flow's dtype. CPU tensors
-    take ``warp_dflow_reference``. ``warp_dflow.launches`` counts kernel
+    take ``warp_dflow_reference``; CUDA tensors one kernel launch, bit for
+    bit the same function. ``warp_dflow.launches`` counts kernel
     launches."""
     if all_on_cpu(g, x, flow):
         return warp_dflow_reference(g, x, flow)
-    index = check_cuda_warp_args("warp_dflow", x, flow, g)
-    if g.dtype != x.dtype:
-        raise TypeError(f"warp_dflow: g ({g.dtype}) and x ({x.dtype}) "
-                        f"must share a dtype")
+    index = _check_dflow_args("warp_dflow", g, x, flow)
     name = (f"tecogan_warp_dflow_{_DTYPE_TAG[x.dtype]}_"
             f"{_DTYPE_TAG[flow.dtype]}")
+    gs, xs, fs = g.stride(), x.stride(), flow.stride()
+    _dflow_plan(x.shape, gs, xs, fs)
     n, c, h, w = x.shape
-    out = torch.empty((n, h, w, 2), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, h, w, 2), dtype=flow.dtype, device=x.device)
     launch(name, index, g.data_ptr(), x.data_ptr(), flow.data_ptr(),
-           out.data_ptr(), n, c, h, w, *g.stride(), *x.stride(),
-           *flow.stride())
+           out.data_ptr(), n, c, h, w, *gs, *xs, *fs)
     warp_dflow.launches += 1
-    return out.to(flow.dtype)
+    return out
 
 
 warp_dimage.launches = 0
+warp_dimage.dflow_launches = 0
 warp_dflow.launches = 0
 
 
 class _WarpDiff(torch.autograd.Function):
-    """Forward K2; backward K3 for the image (only when it needs a
-    gradient) and K4 for the flow (likewise)."""
+    """Forward K2; backward K3 and K4 in one launch when the image and the
+    flow both need a gradient, else K3 or K4 alone for the one that does."""
 
     @staticmethod
     def forward(ctx, x, flow):
@@ -210,9 +288,11 @@ class _WarpDiff(torch.autograd.Function):
     def backward(ctx, g):
         x, flow = ctx.saved_tensors
         dx = dflow = None
-        if ctx.needs_input_grad[0]:
+        if ctx.needs_input_grad[0] and ctx.needs_input_grad[1]:
+            dx, dflow = warp_dimage_dflow(g, x, flow)
+        elif ctx.needs_input_grad[0]:
             dx = warp_dimage(g, flow, x.dtype)
-        if ctx.needs_input_grad[1]:
+        elif ctx.needs_input_grad[1]:
             dflow = warp_dflow(g, x, flow)
         return dx, dflow
 

@@ -192,8 +192,10 @@ def test_unroll_warp_counts(rng, monkeypatch, remat):
     warp per frame and one for the warping loss, each HR warp recomputed
     under remat; the image adjoint for every warp whose image needs a
     gradient (not frame 0's zero carry, not the loss's LR data), the flow
-    adjoint for every flow that does (not frame 0's zero flow)."""
-    counts = {"fwd": 0, "dimage": 0, "dflow": 0}
+    adjoint for every flow that does (not frame 0's zero flow): both in
+    one fused call for the HR warps of frames 1 to t-1, the flow's alone
+    for the loss's warp."""
+    counts = {"fwd": 0, "dimage": 0, "dflow": 0, "dimage_dflow": 0}
 
     def counting(key, fn):
         def wrapped(*a):
@@ -207,6 +209,9 @@ def test_unroll_warp_counts(rng, monkeypatch, remat):
                         counting("dimage", warp_vjp.warp_dimage))
     monkeypatch.setattr(warp_vjp, "warp_dflow",
                         counting("dflow", warp_vjp.warp_dflow))
+    monkeypatch.setattr(warp_vjp, "warp_dimage_dflow",
+                        counting("dimage_dflow",
+                                 warp_vjp.warp_dimage_dflow))
     _, cfg, net = _nets(remat=remat)
     tcfg = steps.TrainConfig(scale=_S, degradation="BD", sigma=1.5,
                              pixel_crit=_CB, warping_crit=_CB)
@@ -218,7 +223,7 @@ def test_unroll_warp_counts(rng, monkeypatch, remat):
     steps.frvsr_train_step(state, {"gt": gt}, cfg_g=cfg, tcfg=tcfg,
                            sched_g=sched)
     assert counts == {"fwd": (t + 1) + (t if remat else 0),
-                      "dimage": t - 1, "dflow": t}
+                      "dimage_dflow": t - 1, "dimage": 0, "dflow": 1}
 
 
 # -------------------------------------------------------------- train step

@@ -21,7 +21,7 @@ from tecogan_tpu_torch.ops.warp_cuda import (warp_planes,
                                              warp_planes_reference, warp_rgb)
 from tecogan_tpu_torch.ops.warp_vjp import (backward_warp_diff, warp_dflow,
                                             warp_dflow_reference,
-                                            warp_dimage,
+                                            warp_dimage, warp_dimage_dflow,
                                             warp_dimage_reference)
 
 # tests/test_warp_vjp.py's shapes, (n, h, w, c)
@@ -153,22 +153,35 @@ def test_backward_warp_diff_bf16_matches_jax_vjp(rng, flow_bf16):
 
 def test_image_adjoint_skipped_for_data(rng, monkeypatch):
     """The warping loss warps data: with an image that needs no gradient
-    the image adjoint (K3) is never computed; the flow's (K4) is."""
+    the image adjoint (K3) is never computed, and the flow's (K4) alone;
+    with both gradients wanted, one fused call computes the two."""
     calls = []
-    real = warp_vjp.warp_dimage
-    monkeypatch.setattr(warp_vjp, "warp_dimage",
-                        lambda *a: calls.append(1) or real(*a))
+    for name in ("warp_dimage", "warp_dflow", "warp_dimage_dflow"):
+        real = getattr(warp_vjp, name)
+        monkeypatch.setattr(
+            warp_vjp, name,
+            lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
     x, flow, g = _inputs(rng, (1, 17, 23, 3))
     xt = _nchw(x)
     ft = torch.from_numpy(flow).requires_grad_(True)
     backward_warp_diff(xt, ft).backward(_nchw(g))
-    assert calls == [] and xt.grad is None
+    assert calls == ["warp_dflow"] and xt.grad is None
     torch.testing.assert_close(
         ft.grad, warp_dflow_reference(_nchw(g), xt, ft.detach()),
         rtol=0, atol=0)
     xg = xt.detach().requires_grad_(True)
     backward_warp_diff(xg, ft.detach()).backward(_nchw(g))
-    assert calls == [1] and xg.grad is not None
+    assert calls == ["warp_dflow", "warp_dimage"] and xg.grad is not None
+    calls.clear()
+    xg.grad = ft.grad = None
+    backward_warp_diff(xg, ft).backward(_nchw(g))
+    assert calls == ["warp_dimage_dflow"]
+    torch.testing.assert_close(
+        xg.grad, warp_dimage_reference(_nchw(g), ft.detach(), xg.dtype),
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        ft.grad, warp_dflow_reference(_nchw(g), xt, ft.detach()),
+        rtol=0, atol=0)
 
 
 def test_cpu_dispatch_counts_no_launch(rng):
@@ -187,7 +200,61 @@ def test_cpu_dispatch_counts_no_launch(rng):
             warp_dflow.launches) == before
 
 
-@pytest.mark.parametrize("fn", ["warp_rgb", "warp_dimage", "warp_dflow"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_fused_adjoints_on_cpu_are_the_plain_pair(rng, x_dtype, flow_dtype,
+                                                  layout):
+    """On CPU tensors warp_dimage_dflow is (warp_dimage_reference,
+    warp_dflow_reference) bit for bit, laid out as the kernel lays them
+    out, and counts no launch."""
+    x, flow, g = _inputs(rng, (2, 17, 23, 3))
+    xt, gt = _nchw(x, x_dtype), _nchw(g, x_dtype)
+    if layout == "nchw":
+        xt, gt = xt.contiguous(), gt.contiguous()
+    ft = torch.from_numpy(flow).to(flow_dtype)
+    before = (warp_dimage.launches, warp_dimage.dflow_launches,
+              warp_dflow.launches)
+    dx, dflow = warp_dimage_dflow(gt, xt, ft)
+    assert (warp_dimage.launches, warp_dimage.dflow_launches,
+            warp_dflow.launches) == before
+    want_dx = warp_dimage_reference(gt, ft, x_dtype)
+    want_dflow = warp_dflow_reference(gt, xt, ft)
+    assert dx.dtype == x_dtype and dx.stride() == gt.stride()
+    assert dflow.dtype == flow_dtype and dflow.shape == (2, 17, 23, 2)
+    assert torch.equal(dx, want_dx) and torch.equal(dflow, want_dflow)
+
+
+def test_k4_plain_adds_channels_in_order(rng):
+    """warp_dflow_reference adds each channel's fp32 term to a running sum
+    from +0.0 in channel order, as the kernel does (numpy float32, one
+    operation at a time), so the two round alike."""
+    x, flow, g = _inputs(rng, (2, 17, 23, 5), scale=30.0)
+    g[..., 1] *= 1e6  # terms of other sizes, so the order shows
+    xt, gt, ft = _nchw(x), _nchw(g), torch.from_numpy(flow)
+    y0, x0, y1, x1, wy, wx = (t.numpy() for t in
+                              warp_cuda.bilinear_taps(ft, 17, 23))
+    b = np.arange(2)[:, None, None]
+    one = np.float32(1.0)
+    jj = np.arange(23, dtype=np.float32)[None, None, :]
+    ii = np.arange(17, dtype=np.float32)[None, :, None]
+    m_x = (jj + flow[..., 0] >= 0).astype(np.float32)
+    m_y = (ii + flow[..., 1] >= 0).astype(np.float32)
+    dfx = np.zeros((2, 17, 23), np.float32)
+    dfy = np.zeros((2, 17, 23), np.float32)
+    for ch in range(5):
+        a00, a01 = x[b, y0, x0, ch], x[b, y0, x1, ch]
+        a10, a11 = x[b, y1, x0, ch], x[b, y1, x1, ch]
+        tx = (one - wy) * (a01 - a00) + wy * (a11 - a10)
+        ty = (one - wx) * (a10 - a00) + wx * (a11 - a01)
+        dfx = dfx + (g[..., ch] * m_x) * tx
+        dfy = dfy + (g[..., ch] * m_y) * ty
+    got = warp_dflow_reference(gt, xt, ft).numpy()
+    np.testing.assert_array_equal(got, np.stack([dfx, dfy], -1))
+
+
+@pytest.mark.parametrize("fn", ["warp_rgb", "warp_dimage", "warp_dflow",
+                                "warp_dimage_dflow"])
 @pytest.mark.parametrize("img_dev,flow_dev", [("meta", "meta"),
                                               ("cpu", "meta"),
                                               ("meta", "cpu")])
@@ -198,7 +265,8 @@ def test_non_cpu_non_cuda_tensors_raise(fn, img_dev, flow_dev):
     flow = torch.empty(1, 8, 8, 2, device=flow_dev)
     call = {"warp_rgb": lambda: warp_rgb(img, flow),
             "warp_dimage": lambda: warp_dimage(img, flow, torch.float32),
-            "warp_dflow": lambda: warp_dflow(img, img, flow)}[fn]
+            "warp_dflow": lambda: warp_dflow(img, img, flow),
+            "warp_dimage_dflow": lambda: warp_dimage_dflow(img, img, flow)}[fn]
     with pytest.raises(ValueError):
         call()
 
@@ -206,7 +274,7 @@ def test_non_cpu_non_cuda_tensors_raise(fn, img_dev, flow_dev):
 def test_kernel_sources_export_every_dtype_pair():
     """Every dtype combination the wrappers can ask for exists as a C entry
     point in the CUDA sources: K2 per (image, flow), K3 per (cotangent,
-    flow, output), K4 per (image, flow)."""
+    flow, output), K4 alone and K3 with K4 per (image, flow)."""
     rgb = (kernel_build.CSRC_DIR / "warp_planes.cu").read_text()
     vjp = (kernel_build.CSRC_DIR / "warp_vjp.cu").read_text()
     tags = warp_cuda._DTYPE_TAG.values()
@@ -214,6 +282,8 @@ def test_kernel_sources_export_every_dtype_pair():
         for b in tags:
             assert f"TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_{a}_{b}," in rgb
             assert f"TECOGAN_DFLOW_ENTRY(tecogan_warp_dflow_{a}_{b}," in vjp
+            assert (f"TECOGAN_DIMAGE_DFLOW_ENTRY(tecogan_warp_dimage_dflow_"
+                    f"{a}_{b},") in vjp
             for o in tags:
                 assert (f"TECOGAN_DIMAGE_ENTRY(tecogan_warp_dimage_{a}_{b}_"
                         f"{o},") in vjp
@@ -224,6 +294,7 @@ _LAUNCHERS = {"K1": ("warp_planes.cu", "launch_planes"),
               "K1 band": ("warp_planes.cu", "launch_planes"),
               "K2": ("warp_planes.cu", "launch_rgb"),
               "K3": ("warp_vjp.cu", "launch_dimage"),
+              "K3+K4": ("warp_vjp.cu", "launch_dimage_dflow"),
               "K4": ("warp_vjp.cu", "launch_dflow"),
               "K5": ("warp_phases.cu", "launch_kernel")}
 
@@ -259,6 +330,8 @@ def test_wrappers_pack_what_the_c_launchers_read(monkeypatch, rng, kernel):
                [channels_last, channels_last, flow]),
         "K3": (lambda: warp_dimage(channels_last, flow, torch.bfloat16),
                [channels_last, channels_last, flow]),
+        "K3+K4": (lambda: warp_dimage_dflow(channels_last, x, flow),
+                  [channels_last, channels_last, flow, x]),
         "K4": (lambda: warp_dflow(g, x, flow), [g, x, flow]),
         "K5": (lambda: wp.warp_phases(
             wp.phase_planes(torch.randn(1, 3, 8, 12), 2), sy, sx, 2),
@@ -413,6 +486,23 @@ def test_k2_plan_writes_every_element_once(shape, layout):
     where = (b[inside] * s0 + i[inside] * s2 + j[inside] * s3)[:, None] \
         + np.arange(c)[None, :] * s1
     assert np.array_equal(np.sort(where.ravel()), np.arange(out.numel()))
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 128), (18, 32, 32),
+                                   (1, 17, 23)])
+def test_k4_plan_writes_every_element_once(shape):
+    """K4's row tiles (K2's grid: column tiles, row tiles, images) cover
+    every output pixel once, and its pair stores put each pixel's (dfx,
+    dfy) at its own two elements of the dense (n, H, W, 2) output."""
+    n, h, w = shape
+    x = torch.empty(n, 3, h, w).contiguous(memory_format=torch.channels_last)
+    flow = torch.empty(n, h, w, 2)
+    warp_vjp._dflow_plan(x.shape, x.stride(), x.stride(), flow.stride())
+    b, i, j, _, _ = warp_cuda.tile_pixels(n, h, w)
+    inside = (i < h) & (j < w)
+    pair = ((b[inside] * h + i[inside]) * w + j[inside]) * 2
+    where = pair[:, None] + np.arange(2)[None, :]
+    assert np.array_equal(np.sort(where.ravel()), np.arange(n * h * w * 2))
 
 
 def test_k3_constants_match_the_cuda_source():
