@@ -8,7 +8,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
 2. build: compiles the CUDA kernels (one nvcc per source, sm_90a) into
    build/kernels/;
 3. K1 (the inference warp kernel) against its plain PyTorch version on the
-   card, at the main path's shapes, the TPU kernel test's shapes and 1080p;
+   card, at the main path's shapes, test mode's (fp32, 576x720), the TPU
+   kernel test's shapes and 1080p;
    K1's band mode at the row-folded geometries of 4 streams of 134x320 at
    4x and 3 streams at 2x, and at bands whose row tiles straddle two bands
    or hold several; K5 (the phase-plane warp) at the packed16 path's
@@ -23,15 +24,30 @@ Phases, each fatal on failure (nonzero exit, no result line):
    BD, bf16) serves three requests, and K1 must have been launched once
    per warped frame; then a torch.profiler breakdown of one run at
    bench.py's protocol;
-5. the packed16 path at the same width through infer_sequence_batch: K5
+5. test mode through the port's CLI (tecogan_tpu_torch.main, in process,
+   card 0) on the shipped FRVSR test.yml with its paths replaced, at full
+   width in fp32: a BD test set without LR frames (2 sequences x 12
+   frames of 576x720, Vid4 calendar's geometry) and a BI one with LR
+   frames made by imresize_matlab, each swept over two checkpoints
+   (`*.npz`). One PNG per GT frame under its name, each bit-identical to
+   VSRModel.infer; K1 once per warped frame and no other kernel; both
+   sweep entries in the metrics JSON, PSNR equal to a recomputation from
+   the PNGs; tOF gated where cv2 is absent. Host seconds per sequence
+   (read, infer, write, metrics) and frames/s with and without PNG I/O;
+   read_png's seconds a frame on files with row filters (cv2.imwrite's
+   where cv2 imports, and every filter in turn) beside the port's own;
+   then one 6-frame BD sequence through the CLI on the card against the
+   CPU (--gpu_ids -1), and bf16 against fp32 over a 96-frame clip of
+   134x320 (tests/test_golden.py's drift bound);
+6. the packed16 path at the same width through infer_sequence_batch: K5
    once per warped frame, output against the default path's, the FPS of
    both at bench.py's protocol, in turns, and a profile;
-6. the fold_streams path, 4 streams of 134x320: band-mode K1 once per
+7. the fold_streams path, 4 streams of 134x320: band-mode K1 once per
    frame, each stream against the unfolded batched path, the aggregate
    FPS of both, in turns, and a profile;
-7. inference on the card against the CPU plain path, same weights and
+8. inference on the card against the CPU plain path, same weights and
    inputs, default and packed16;
-8. K2, K3 and K4 (the training warp and its two adjoints), and K3 and K4
+9. K2, K3 and K4 (the training warp and its two adjoints), and K3 and K4
    in one launch, against their plain versions at the training shapes, the
    TPU kernel test's shapes and the 536x1280 HR frame, image and flow in
    f32 and bf16, NCHW and channels_last: all bit for bit (K3 against its
@@ -43,13 +59,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    the training shapes; with their times beside grid_sample's backward for
    the same gradients, and each kernel's zero-flow and streaming-add
    controls;
-9. the training path: a VSRModel built like the Vimeo FRVSR train.yml
+10. the training path: a VSRModel built like the Vimeo FRVSR train.yml
    (nf=64, nb=10, 4x BD, batch 2 x 10 frames of 136^2 uint8 GT, bf16 mixed
    precision, remat) takes five steps; the K2/K3/K4 launch counts (and the
    K3 launches fused with K4) must be exactly what the step's structure
    gives; ms/step, a profile of one step, then save and resume into a
    fresh model;
-10. one training step on the card against the CPU, fp32 and bf16.
+11. one training step on the card against the CPU, fp32 and bf16.
 
 Every kernel is timed beside its plain version, its device time (from
 torch.profiler), one PyTorch library call that computes the same function
@@ -62,6 +78,7 @@ second-to-last line lists the kernels as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -313,6 +330,13 @@ def phase_k1(card):
                 cases.append((shape, pd, "f32", "nhwc", sigma))
     for pd in dts:
         cases.append(((1, 3, 1080, 1920), pd, pd, "nchw", 30.0))
+    # test mode's call: a 576x720 HR frame (Vid4's geometry, its width off
+    # the 64-column tile), planes and flow in the generator's dtype, the
+    # flow as the NCHW view of one frame of a chunk's HR flows
+    for pd in dts:
+        for layout in ("nchw", "chunk"):
+            for sigma in (6.0, 30.0, 300.0):
+                cases.append(((1, 3, 576, 720), pd, pd, layout, sigma))
     # planes and flow that start off a 16-byte boundary (one element in),
     # and ragged tiles: widths off the 64-column tile and the 32-lane warp,
     # heights off the 4-row tile
@@ -324,9 +348,14 @@ def phase_k1(card):
     for shape, pd, fd, layout, sigma in cases:
         n, c, h, w = shape
         planes = torch.randn(shape, generator=gen, device=dev).to(dts[pd])
-        flow = torch.randn((n, 2, h, w), generator=gen, device=dev) * sigma
+        if layout == "chunk":  # frame 1 of a (n, 2 frames, 2, h, w) chunk
+            flow = torch.randn((n, 2, 2, h, w), generator=gen,
+                               device=dev)[:, 1] * sigma
+        else:
+            flow = torch.randn((n, 2, h, w), generator=gen,
+                               device=dev) * sigma
         flow = flow.to(dts[fd])
-        flow = (flow.permute(0, 2, 3, 1) if layout == "nchw"
+        flow = (flow.permute(0, 2, 3, 1) if layout in ("nchw", "chunk")
                 else flow.permute(0, 2, 3, 1).contiguous())
         if layout == "offset":
             planes, flow = _offset_by_one(planes), _offset_by_one(flow)
@@ -373,6 +402,21 @@ def phase_k1(card):
     zero = torch.zeros_like(flow)
     _controls(f"K1 {shape} zero flow", card, lambda: warp_planes(planes, zero),
               lambda: warp_planes_reference(planes, zero), out)
+    # test mode's call (fp32 planes and flow at 576x720, smooth flow):
+    # timed and printed; the JSON line keeps the main path's shape
+    tm = (1, 3, 576, 720)
+    tm_planes = torch.randn(tm, generator=gen, device=dev)
+    tm_flow = _smooth_flow(gen, dev, 1, 576, 720, 6.0).permute(0, 2, 3, 1)
+    tm_grid = _grid(tm_flow, tm_planes.dtype)
+    tm_out = warp_planes(tm_planes, tm_flow)
+    _time_kernel(
+        f"K1 time {tm} f32 planes+flow (test mode), smooth flow sigma 6",
+        card, lambda: warp_planes(tm_planes, tm_flow),
+        lambda: warp_planes_reference(tm_planes, tm_flow),
+        lambda: F.grid_sample(tm_planes, tm_grid, mode="bilinear",
+                              padding_mode="border", align_corners=True),
+        _bound("K1", (tm_planes, tm_flow), (tm_out,), tm_out[:, 0].numel(),
+               3))
     t["max_abs_err"] = max_err
     return t
 
@@ -991,6 +1035,490 @@ def phase_slice(ckpt, rng):
     return model, counts["K1"]
 
 
+# --------------------------------------------------------------- test mode
+
+TM_FRAMES, TM_GT = 12, (576, 720)  # Vid4 calendar's geometry: LR 144x180
+TM_CPU_FRAMES = 6
+# bf16 drift over a long clip (tests/test_golden.py:139-174)
+DRIFT_T, DRIFT_LR, DRIFT_FLOOR, DRIFT_SLIDE = 96, (134, 320), 45.0, 6.0
+SHIPPED_TEST_YML = "experiments_BD/FRVSR/FRVSR_VimeoTecoGAN_4xSR_2GPU/test.yml"
+
+
+def _yaml_text(opt):
+    """A nested dict of scalars as block YAML that the port's reader reads
+    back to ``opt`` (the card has no PyYAML)."""
+    from tecogan_tpu_torch.utils.yaml_subset import safe_load
+
+    def scalar(v):
+        if v is None:
+            return "null"
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, (int, float)):
+            return repr(v)
+        return "'" + str(v).replace("'", "''") + "'"
+
+    def lines(d, indent):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield f"{' ' * indent}{k}:"
+                yield from lines(v, indent + 2)
+            else:
+                yield f"{' ' * indent}{k}: {scalar(v)}"
+
+    text = "\n".join(lines(opt, 0)) + "\n"
+    _require(safe_load(text) == opt, "test.yml does not read back")
+    return text
+
+
+def _write_seq(seq_dir, frames):
+    from tecogan_tpu_torch.utils.png import write_png
+
+    os.makedirs(seq_dir)
+    for i, f in enumerate(frames):
+        write_png(os.path.join(seq_dir, f"{i:04d}.png"), f)
+
+
+def _write_png_filtered(path, rgb):
+    """(h, w, 3) uint8 RGB -> an 8-bit RGB PNG whose rows cycle through the
+    five row filters (None, Sub, Up, Average, Paeth), as files from other
+    encoders mix them (the port's write_png uses None only)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    x = rgb.reshape(h, 3 * w).astype(np.int32)
+    a = np.pad(x, ((0, 0), (3, 0)))[:, :-3]  # left, upper, upper-left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    c = np.pad(x, ((1, 0), (3, 0)))[:-1, :-3]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    ftype = np.arange(h) % 5
+    pred = np.select([ftype[:, None] == k for k in range(4)],
+                     [0, a, b, (a + b) >> 1], paeth)
+    rows = np.concatenate([ftype[:, None], (x - pred) & 0xFF], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8)
+                                               .tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def _filter_mix(path):
+    """How many rows of an 8-bit PNG use each row filter (0-4)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        buf = f.read()
+    pos, idat = 8, []
+    while pos < len(buf):
+        length, kind = struct.unpack(">I4s", buf[pos:pos + 8])
+        data = buf[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            w, h, _, ctype = struct.unpack(">IIBB", data[:10])
+        elif kind == b"IDAT":
+            idat.append(data)
+        pos += 12 + length
+    bpp = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    return np.bincount(rows.reshape(h, 1 + w * bpp)[:, 0],
+                       minlength=5).tolist()
+
+
+def _png_read_times(tmp, frames, card):
+    """read_png's host seconds a frame on the same frames written three
+    ways: by the port's write_png (row filter None), with every row filter
+    in turn, and by cv2.imwrite where cv2 imports (libpng's own choice of
+    filters, as the real test sets' files have). Each file must decode to
+    the frame written."""
+    from tecogan_tpu_torch.utils.png import read_png, write_png
+
+    writers = {"write_png (filter None)": write_png,
+               "five filters in turn": _write_png_filtered}
+    try:
+        import cv2
+    except ImportError:
+        print("read_png on cv2.imwrite's files: not measured (no cv2)")
+    else:
+        writers["cv2.imwrite"] = lambda p, f: cv2.imwrite(p, f[..., ::-1])
+    paths = {}
+    for i, (kind, write) in enumerate(writers.items()):
+        os.makedirs(f"{tmp}/png{i}")
+        paths[kind] = [f"{tmp}/png{i}/{j:04d}.png" for j in range(len(frames))]
+        for p, f in zip(paths[kind], frames):
+            write(p, f)
+    secs = {kind: [] for kind in writers}
+    for _ in range(2):  # in turns, twice; the faster pass is kept
+        for kind, ps in paths.items():
+            t0 = time.perf_counter()
+            got = [read_png(p) for p in ps]
+            secs[kind].append((time.perf_counter() - t0) / len(ps))
+            _require(all(np.array_equal(g, f) for g, f in zip(got, frames)),
+                     f"read_png does not decode {kind}'s files")
+    h, w = frames.shape[1:3]
+    for kind, ps in paths.items():
+        print(f"read_png on {len(ps)} frames of {h}x{w} by {kind} (rows "
+              f"per filter 0-4 in the first file: {_filter_mix(ps[0])}): "
+              f"{min(secs[kind]):.4f} s a frame (host clock, passes "
+              f"{[round(x, 4) for x in secs[kind]]}) on {card}")
+
+
+def _test_mode_opt(tmp, name, degradation, test_set, load_path, metric):
+    """The shipped FRVSR test.yml with its paths replaced."""
+    from tecogan_tpu_torch.utils.yaml_subset import safe_load
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           SHIPPED_TEST_YML)) as f:
+        opt = safe_load(f.read())
+    exp = os.path.join(tmp, f"exp_{name}")
+    opt["dataset"] = {"degradation": degradation,
+                      "test1": {"name": "Vid4", **test_set,
+                                "num_worker_per_gpu": 3, "pin_memory": True}}
+    # the shipped width (nf=64, nb=10) unless a rehearsal cuts it
+    opt["model"]["generator"].update(nf=NF, nb=NB, load_path=load_path)
+    opt["test"].update({"save_res": True, "res_dir": f"{exp}/results",
+                        "save_json": True, "json_dir": f"{exp}/metrics",
+                        "start_iter": 1, "end_iter": 2, "test_freq": 1})
+    opt["metric"] = metric
+    os.makedirs(exp)
+    path = os.path.join(exp, "test.yml")
+    with open(path, "w") as f:
+        f.write(_yaml_text(opt))
+    return exp, path, opt["test"]["num_pad_front"]
+
+
+class _Warnings:
+    """Collects the WARNING records of the port's 'base' logger."""
+
+    def __enter__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = self.records.append
+        logging.getLogger("base").addHandler(self.handler)
+        return self.records
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("base").removeHandler(self.handler)
+
+
+@contextlib.contextmanager
+def _blocked(module):
+    """``import module`` raises inside the block (``None`` blocks nothing)."""
+    saved = sys.modules.get(module)
+    if module:
+        sys.modules[module] = None
+    try:
+        yield
+    finally:
+        if module and saved is None:
+            del sys.modules[module]
+        elif module:
+            sys.modules[module] = saved
+
+
+def _cli(exp, yml, gpu_ids):
+    """The port's CLI in process; returns (records, seconds, warnings)."""
+    from tecogan_tpu_torch.main import main as cli_main
+
+    with _Warnings() as warns:
+        t0 = time.perf_counter()
+        records = cli_main(["--exp_dir", exp, "--mode", "test", "--opt", yml,
+                            "--gpu_ids", gpu_ids])
+        secs = time.perf_counter() - t0
+    return records, secs, [w.getMessage() for w in warns]
+
+
+def _psnr_y(gt, sr):
+    """PSNR on Y of two uint8 RGB frames, from the PNGs' pixels."""
+    from tecogan_tpu_torch.ops.color import rgb_to_ycbcr
+
+    a = rgb_to_ycbcr(gt)[..., 0].astype(np.float64)
+    b = rgb_to_ycbcr(sr)[..., 0].astype(np.float64)
+    return 20 * np.log10(255.0 / np.sqrt(np.mean((a - b) ** 2)))
+
+
+def _check_test_run(label, opt_path, exp, records, warns, tof):
+    """Requirements (a), (b), (d), (e) on one CLI run of test mode; tOF is
+    computed if ``tof`` (cv2 could be imported), else gated."""
+    import json as _json
+
+    import torch
+
+    from tecogan_tpu_torch.data import create_test_dataset
+    from tecogan_tpu_torch.models import define_model
+    from tecogan_tpu_torch.utils import config as config_utils
+    from tecogan_tpu_torch.utils import paths as path_utils
+    from tecogan_tpu_torch.utils.png import read_png
+
+    args = config_utils.parse_args(["--exp_dir", exp, "--mode", "test",
+                                    "--opt", opt_path, "--gpu_ids", "0"])
+    opt = config_utils.parse_configs(args)
+    path_utils.setup_paths(opt, "test")
+    dataset = create_test_dataset(opt, "test1")
+    gt_dir = opt["dataset"]["test1"]["gt_seq_dir"]
+    res = os.path.join(exp, "results", "Vid4")
+    with open(os.path.join(exp, "metrics", "Vid4_avg.json")) as f:
+        summary = _json.load(f)
+    _require(list(summary) == ["G_iter1", "G_iter2"],
+             f"{label}: metrics JSON entries {list(summary)}")
+    # (e) tOF where cv2 imports, else its gate: one WARNING, no tOF
+    tof_warns = [w for w in warns if "tOF disabled" in w]
+    if tof:
+        _require(not tof_warns and all(
+            np.isfinite(float(e["tOF"])) for e in summary.values()),
+                 f"{label}: cv2 imports but tOF was not computed")
+    else:
+        _require(len(tof_warns) == 1 and "cv2" in tof_warns[0]
+                 and all(list(e) == ["PSNR", "SSIM"]
+                         for e in summary.values()),
+                 f"{label}: tOF not gated with one WARNING: {warns}")
+    print(f"test mode {label}: tOF "
+          + (f"computed: {summary['G_iter1']['tOF']}, "
+             f"{summary['G_iter2']['tOF']}" if tof
+             else f"gated ({tof_warns[0]})"))
+    for k in ("PSNR", "SSIM"):
+        v1, v2 = float(summary["G_iter1"][k]), float(summary["G_iter2"][k])
+        _require(np.isfinite(v1) and np.isfinite(v2) and v1 != v2,
+                 f"{label}: {k} {v1}, {v2} not finite and different")
+
+    model, n_pngs, infer_s, infer_frames = None, 0, 0.0, 0
+    for it in (1, 2):
+        idx, ckpt = f"G_iter{it}", opt["model"]["generator"][
+            "load_path_lst"][it - 1]
+        if model is None:
+            opt["model"]["generator"]["load_path"] = ckpt
+            model = define_model(opt)
+        else:
+            model.load_generator(ckpt)
+        psnr_seqs = []
+        for i in range(len(dataset)):
+            data = dataset[i]
+            seq = data["seq_idx"]
+            # (a) one PNG per GT frame, under the GT's file names
+            names = sorted(os.listdir(os.path.join(res, idx, seq)))
+            _require(names == sorted(os.listdir(os.path.join(gt_dir, seq))),
+                     f"{label}: {idx}/{seq} holds {names}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = model.infer(model.prepare_inference_data(data))
+            infer_s += time.perf_counter() - t0
+            infer_frames += len(want)
+            # (b) the PNGs decode to VSRModel.infer's frames exactly
+            got = np.stack([read_png(os.path.join(res, idx, seq, n))
+                            for n in names])
+            _require(got.shape == want.shape and np.array_equal(got, want),
+                     f"{label}: {idx}/{seq} PNGs differ from VSRModel.infer")
+            n_pngs += len(names)
+            # (d) PSNR recomputed from the PNGs
+            psnr = float(np.mean([_psnr_y(g, s) for g, s in
+                                  zip(data["gt"], got)]))
+            rec = [r for r in records
+                   if r["model_idx"] == idx and r["seq_idx"] == seq]
+            _require(len(rec) == 1 and abs(
+                rec[0]["metrics"]["PSNR"] - psnr) <= 1e-9,
+                     f"{label}: {idx}/{seq} PSNR {rec} against {psnr}")
+            psnr_seqs.append(psnr)
+        _require(abs(float(summary[idx]["PSNR"])
+                     - np.mean(psnr_seqs)) <= 5e-7 + 1e-12,
+                 f"{label}: {idx} JSON PSNR {summary[idx]['PSNR']} "
+                 f"against {np.mean(psnr_seqs)}")
+    print(f"test mode {label}: {n_pngs} PNGs bit-identical to "
+          f"VSRModel.infer; PSNR/SSIM G_iter1 {summary['G_iter1']['PSNR']}/"
+          f"{summary['G_iter1']['SSIM']}, G_iter2 "
+          f"{summary['G_iter2']['PSNR']}/{summary['G_iter2']['SSIM']}, "
+          f"PSNR equal to the PNGs' recomputation")
+    return infer_frames, infer_s
+
+
+def _report_times(label, records, secs, infer, card):
+    frames = sum(r["frames"] for r in records)
+    for r in records:
+        print(f"test mode {label} {r['model_idx']}/{r['seq_idx']}: "
+              f"{r['frames']} frames of {TM_GT[0]}x{TM_GT[1]}, host seconds "
+              f"read {r['read_s']:.4f}, infer {r['infer_s']:.4f}, write "
+              f"{r['write_s']:.4f}, metrics {r['metrics_s']:.4f} on {card}")
+    split = {k: sum(r[k] for r in records)
+             for k in ("read_s", "infer_s", "write_s", "metrics_s")}
+    per_seq = sum(split.values())
+    print(f"test mode {label} (fp32, nf={NF}, nb={NB}, {SCALE}x): {frames} "
+          f"frames in {secs:.3f} s of CLI (model build and checkpoint loads "
+          f"included), {per_seq:.3f} s over the sequences: "
+          f"{frames / secs:.2f} frames/s with PNG I/O and metrics "
+          f"({frames / per_seq:.2f} over the sequences); split "
+          + ", ".join(f"{k[:-2]} {v / per_seq:.1%}" for k, v in split.items())
+          + f"; VSRModel.infer alone on the same frames "
+          f"{infer[0] / infer[1]:.2f} frames/s ({infer[1]:.3f} s) on {card}")
+
+
+def phase_test_mode(card):
+    """Test mode through the port's CLI (``tecogan_tpu_torch.main.main``)
+    on card 0, at the flagship width, in fp32 as the shipped test.yml:
+    a BD set without LR frames (2 x 12 frames of 576x720 GT) and a BI set
+    with LR frames made by imresize_matlab (1 x 12), each swept over two
+    checkpoints; then one 6-frame sequence on the CPU against the card,
+    and the bf16 drift over a 96-frame clip."""
+    import torch
+
+    import importlib.util
+
+    from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
+                                                   infer_sequence)
+    from tecogan_tpu_torch.ops.color import float32_to_uint8
+    from tecogan_tpu_torch.ops.degrade import imresize_matlab
+    from tecogan_tpu_torch.utils.ckpt import (load_generator_params,
+                                              save_pytree)
+    from tecogan_tpu_torch.utils.png import read_png
+
+    rng = np.random.default_rng(SEED + 7)
+    metric = {"PSNR": {"colorspace": "y"}, "SSIM": None,
+              "tOF": {"colorspace": "y"}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for seq in ("calendar", "city"):
+            _write_seq(f"{tmp}/BD/GT/{seq}", float32_to_uint8(
+                _smooth_frames(rng, TM_FRAMES, *TM_GT)))
+        gt = float32_to_uint8(_smooth_frames(rng, TM_FRAMES, *TM_GT))
+        _write_seq(f"{tmp}/BI/GT/walk", gt)
+        _write_seq(f"{tmp}/BI/LR/walk", float32_to_uint8(
+            imresize_matlab(gt.astype(np.float64) / 255.0, scale=0.25)))
+        _write_seq(f"{tmp}/BD6/GT/foliage", gt[:TM_CPU_FRAMES])
+        os.makedirs(f"{tmp}/ckpt")
+        for it in (1, 2):
+            save_pytree(_jax_layout_params(rng, NF, NB, SCALE),
+                        f"{tmp}/ckpt/G_iter{it}.npz")
+        print(f"test mode: wrote {3 * TM_FRAMES + TM_CPU_FRAMES} GT and "
+              f"{TM_FRAMES} LR PNGs and two checkpoints in "
+              f"{time.perf_counter() - t0:.2f} s")
+        _png_read_times(tmp, gt, card)
+
+        # tOF needs cv2: the BD run computes it where cv2 is installed, the
+        # BI run has cv2 blocked and shows the gate
+        cv2_found = importlib.util.find_spec("cv2") is not None
+        for label, deg, test_set, block in (
+                ("BD", {"type": "BD", "sigma": 1.5},
+                 {"gt_seq_dir": f"{tmp}/BD/GT"}, None),
+                ("BI", {"type": "BI"}, {"gt_seq_dir": f"{tmp}/BI/GT",
+                                        "lr_seq_dir": f"{tmp}/BI/LR"},
+                 "cv2")):
+            exp, yml, n_pad = _test_mode_opt(tmp, label, deg, test_set,
+                                             f"{tmp}/ckpt/*.npz", metric)
+            _reset_counts()
+            with _blocked(block):
+                records, secs, warns = _cli(exp, yml, "0")
+            counts = _read_counts()
+            expected = sum(_frames_warped(r["frames"] + n_pad, 16)
+                           for r in records)
+            print(f"test mode {label}: launches {counts}, frames warped "
+                  f"{expected}")
+            # (c) K1 once per warped frame, and no other warp kernel
+            _require(counts == {**dict.fromkeys(counts, 0), "K1": expected},
+                     f"test mode {label}: K1 not launched once per warped "
+                     f"frame, or another kernel launched")
+            infer = _check_test_run(label, yml, exp, records, warns,
+                                    tof=cv2_found and block is None)
+            _report_times(label, records, secs, infer, card)
+
+        # (f) the card against the CPU, one BD sequence of 6 frames
+        outs = {}
+        for gpu_ids in ("0", "-1"):
+            exp, yml, _ = _test_mode_opt(
+                tmp, f"BD6_{gpu_ids}", {"type": "BD", "sigma": 1.5},
+                {"gt_seq_dir": f"{tmp}/BD6/GT"}, f"{tmp}/ckpt/G_iter1.npz",
+                {"PSNR": {"colorspace": "y"}})
+            _, secs, _ = _cli(exp, yml, gpu_ids)
+            d = f"{exp}/results/Vid4/G_iter1/foliage"
+            outs[gpu_ids] = np.stack([read_png(f"{d}/{n}")
+                                      for n in sorted(os.listdir(d))])
+            where = "the card" if gpu_ids == "0" else "the CPU"
+            print(f"test mode BD6 on {where}: {TM_CPU_FRAMES} frames in "
+                  f"{secs:.2f} s (host clock)")
+        diff = outs["0"].astype(np.int32) - outs["-1"]
+        mse = float(np.mean(diff.astype(np.float64) ** 2))
+        psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+        ok = (outs["0"].shape == (TM_CPU_FRAMES, *TM_GT, 3)
+              and np.abs(diff).max() <= F32_MAX_DIFF and psnr > F32_PSNR)
+        print(f"test mode card vs CPU (fp32, {TM_CPU_FRAMES} frames of "
+              f"{TM_GT[0]}x{TM_GT[1]}): max diff {np.abs(diff).max()} (<= "
+              f"{F32_MAX_DIFF}), PSNR {psnr:.2f} dB (> {F32_PSNR}): "
+              f"{'ok' if ok else 'FAIL'}")
+        _require(ok, "test mode: card output outside the CPU's fp32 band")
+        sd = load_generator_params(f"{tmp}/ckpt/G_iter1.npz", NB, SCALE)
+
+    # (g) bf16 against fp32 over a 96-frame clip, full width, on the card
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = FRNet.from_state_dict(FRNetConfig(nf=NF, nb=NB, scale=SCALE), sd,
+                                "cuda")
+    lr = torch.from_numpy(_smooth_frames(rng, DRIFT_T, *DRIFT_LR)).cuda()
+    a, b = (infer_sequence(net, lr, FRNetConfig(
+        nf=NF, nb=NB, scale=SCALE, compute_dtype=dt), chunk=16)
+        .cpu().numpy().astype(np.float64) for dt in ("float32", "bfloat16"))
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+    mse = np.mean((a - b) ** 2, axis=(1, 2, 3))
+    psnr = 10 * np.log10(255.0 ** 2 / np.maximum(mse, 1e-12))
+    first, last = psnr[:16].mean(), psnr[-16:].mean()
+    ok = psnr.min() > DRIFT_FLOOR and last > first - DRIFT_SLIDE
+    print(f"bf16 drift over {DRIFT_T} frames of {DRIFT_LR[0]}x{DRIFT_LR[1]} "
+          f"(nf={NF}, nb={NB}, {SCALE}x BD, against fp32 on the card): "
+          f"worst frame {psnr.min():.2f} dB (> {DRIFT_FLOOR}), first 16 "
+          f"{first:.2f}, last 16 {last:.2f} dB (> first - {DRIFT_SLIDE}): "
+          f"{'ok' if ok else 'FAIL'} on {card}")
+    _require(ok, "bf16 drift bound violated")
+    _determinism(net, torch.from_numpy(_smooth_frames(
+        rng, TM_FRAMES + 5, TM_GT[0] // SCALE, TM_GT[1] // SCALE)).cuda(),
+        card)
+
+
+def _determinism(net, lr, card):
+    """Test mode's fp32 inference (TF32 off) with cuDNN's deterministic
+    algorithms, as the CLI runs it, against cuDNN's default choice, in
+    turns: the time of each and whether repeated runs agree. The
+    deterministic runs must be bit-identical."""
+    import torch
+
+    from tecogan_tpu_torch.models.base import inference_numerics
+    from tecogan_tpu_torch.models.networks import FRNetConfig, infer_sequence
+
+    cfg = FRNetConfig(nf=NF, nb=NB, scale=SCALE)
+    outs, times = {True: [], False: []}, {True: [], False: []}
+    with inference_numerics("float32"):
+        for det in (True, False) + (True, False, False, True) * 2:
+            torch.backends.cudnn.deterministic = det
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[det].append(infer_sequence(net, lr, cfg, chunk=16)
+                             .cpu().numpy())
+            times[det].append(time.perf_counter() - t0)
+    differ = {det: [int((o != v[0]).sum()) for o in v[1:]]
+              for det, v in outs.items()}
+    t = len(lr)
+    print(f"test mode fp32 inference, {t} frames of {tuple(lr.shape[1:3])} "
+          f"LR, TF32 off, in turns after a warm-up each: cuDNN "
+          f"deterministic {min(times[True][1:]) * 1e3:.1f} ms (all "
+          f"{[round(x * 1e3, 1) for x in times[True][1:]]}), default "
+          f"{min(times[False][1:]) * 1e3:.1f} ms (all "
+          f"{[round(x * 1e3, 1) for x in times[False][1:]]}); values "
+          f"differing from the first run: deterministic {differ[True]}, "
+          f"default {differ[False]} on {card}")
+    _require(not any(differ[True]),
+             "deterministic fp32 inference differs between runs")
+
+
 def phase_fps(model, card, variants, streams=1):
     """bench.py's protocol for each variant (label, cfg, fold_streams): 64
     frames of 134x320 per stream, bf16, chunk=64, a checksum read back to
@@ -1498,6 +2026,7 @@ def main() -> int:
         ckpt = os.path.join(tmp, "G_random.npz")
         save_pytree(params, ckpt)
         model, k1_launches = phase_slice(ckpt, rng)
+    phase_test_mode(card)
     phase_profile(model, card)
     launches = {"K1": k1_launches, "K5": phase_p16(model, card, rng),
                 "K1 band": phase_fold(model, card, rng)}
@@ -1509,7 +2038,8 @@ def main() -> int:
     launches.update(phase_train(rng, card))
     phase_train_card_vs_cpu(sd, rng)
 
-    _require("jax" not in sys.modules, "jax was imported")
+    _require("jax" not in sys.modules and "yaml" not in sys.modules,
+             "jax or yaml was imported")
     rows = []
     for key, name, source, replaces in (
             ("K1", "warp_planes", "tecogan_tpu_torch/csrc/warp_planes.cu",

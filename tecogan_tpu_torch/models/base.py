@@ -10,6 +10,7 @@ running log) to ``state_iter{N}.pth`` with ``torch.save``, and
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import os.path as osp
@@ -47,6 +48,30 @@ def select_device(opt) -> torch.device:
         raise NotImplementedError(
             f"multi-device inference is not ported yet; got device_ids {ids}")
     return torch.device("cuda", ids[0])
+
+
+@contextlib.contextmanager
+def inference_numerics(compute_dtype: str):
+    """The cuDNN and matmul settings inference runs under, restored after.
+
+    fp32 means fp32 and the same every run: PyTorch runs fp32 cuDNN
+    convolutions and matmuls in TF32 unless told not to, and cuDNN's
+    default fp32 transposed convolutions are not deterministic, so for
+    float32 work TF32 is off and cuDNN picks only deterministic algorithms.
+    bf16 runs under the settings as they are (it is deterministic without
+    them).
+    """
+    if compute_dtype != "float32":
+        yield
+        return
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.deterministic = True
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 class BaseVSRModel:
@@ -87,8 +112,10 @@ class BaseVSRModel:
             raise ValueError("lr data is required for BI mode")
         gt = torch.as_tensor(np.asarray(data["gt"]), device=self.device)
         gt = gt.float().div_(255.0).permute(0, 3, 1, 2)  # (t, c, H, W)
-        lr = downsample_bd(gt, self.scale, sigma=degradation.get("sigma", 1.5),
-                           pad_data=True)
+        with inference_numerics("float32"):
+            lr = downsample_bd(gt, self.scale,
+                               sigma=degradation.get("sigma", 1.5),
+                               pad_data=True)
         return lr.permute(0, 2, 3, 1).contiguous()
 
     def pad_sequence(self, lr_data: torch.Tensor):

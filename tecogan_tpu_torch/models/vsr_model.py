@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..utils import ckpt as ckpt_io
-from .base import BaseVSRModel
+from .base import BaseVSRModel, inference_numerics
 from .convert import jax_from_state_dict
 from .networks import define_generator, infer_sequence
 from .schedules import make_adam
@@ -75,12 +75,14 @@ class VSRModel(BaseVSRModel):
         """LR sequence (t, h, w, c) float -> SR uint8 (t, sh, sw, c).
 
         Front-pads the sequence to warm up the recurrent state, then trims
-        (`vsr_model.py:97-113`).
+        (`vsr_model.py:97-113`). A float32 generator runs with TF32 off and
+        cuDNN's deterministic algorithms (``inference_numerics``).
         """
         lr = torch.as_tensor(lr_data, device=self.device)
         lr, n_pad = self.pad_sequence(lr)
-        hr = infer_sequence(self.net_g, lr, self.cfg_g, chunk)
-        return hr[n_pad:].cpu().numpy()
+        with inference_numerics(self.cfg_g.compute_dtype):
+            hr = infer_sequence(self.net_g, lr, self.cfg_g, chunk)
+            return hr[n_pad:].cpu().numpy()
 
     # ------------------------------------------------------------------- save
     def save(self, current_iter):

@@ -27,13 +27,15 @@ def _np_tree(tree):
     return jax.tree.map(np.array, tree)  # writable copies
 
 
-@pytest.fixture(scope="module", params=[4, 2])
+@pytest.fixture(scope="module", params=[(4, "BD"), (2, "BD"), (4, "BI"),
+                                        (2, "BI")],
+                ids=["4", "2", "4-BI", "2-BI"])
 def nets(request):
-    scale = request.param
-    jcfg = JCfg(nf=_NF, nb=_NB, scale=scale, degradation="BD",
+    scale, degradation = request.param
+    jcfg = JCfg(nf=_NF, nb=_NB, scale=scale, degradation=degradation,
                 pallas_warp=False)
     params = _np_tree(init_frnet(jax.random.PRNGKey(5), jcfg))
-    cfg = FRNetConfig(nf=_NF, nb=_NB, scale=scale)
+    cfg = FRNetConfig(nf=_NF, nb=_NB, scale=scale, degradation=degradation)
     net = FRNet.from_state_dict(cfg, state_dict_from_jax(params, _NB, scale))
     return jcfg, params, cfg, net
 
@@ -79,7 +81,7 @@ def test_srnet_matches_jax(rng, nets, packed_tail):
     hr = rng.random((2, 12 * s, 10 * s, 3)).astype(np.float32)
     want = np.asarray(srnet_apply(
         params["srnet"], jnp.asarray(lr), jspace_to_depth(jnp.asarray(hr), s),
-        _NB, s, "BD", packed_tail=packed_tail))
+        _NB, s, jcfg.degradation, packed_tail=packed_tail))
     with torch.no_grad():
         got = _nhwc(net.srnet(_nchw(lr), _nchw(hr)))
     np.testing.assert_allclose(got, want, atol=1e-4)

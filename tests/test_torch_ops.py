@@ -113,3 +113,23 @@ def test_quantize_uint8_matches_jax(rng):
         jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32) * 255.0),
         0, 255).astype(jnp.uint8))
     np.testing.assert_array_equal(got16, want16)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 48, 56, 3), dict(scale=0.25)),
+    ((37, 53, 3), dict(scale=0.25)),
+    ((1, 20, 28, 3), dict(scale=0.5, antialias=False)),
+    ((9, 13, 3), dict(scale=4)),
+    ((2, 40, 30, 3), dict(out_shape=(13, 7))),
+])
+def test_imresize_matlab_matches_jax(rng, shape, kw):
+    x = rng.random(shape)
+    want = jops.imresize_matlab(x, **kw)
+    got = tops.imresize_matlab(x, **kw)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    # a torch tensor takes the same matrices on its device, in its dtype
+    t = tops.imresize_matlab(torch.from_numpy(x.astype(np.float32)), **kw)
+    assert t.dtype == torch.float32 and tuple(t.shape) == want.shape
+    np.testing.assert_allclose(t.numpy(), want, atol=1e-5)

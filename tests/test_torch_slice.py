@@ -158,6 +158,40 @@ def test_vsr_model_requires_cuda_or_explicit_cpu():
         VSRModel({**_test_opt(None), "test": {"spatial_partition": True}})
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vsr_model_infer_numerics(monkeypatch, rng, dtype):
+    """VSRModel.infer runs a float32 generator with TF32 off and cuDNN's
+    deterministic algorithms, and a bf16 one under the settings as they
+    are; either way the settings are restored after the call."""
+    from tecogan_tpu_torch.models import vsr_model
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+
+    def flags():
+        return cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32
+
+    seen = []
+
+    def recording(*args, **kwargs):
+        seen.append(flags())
+        return infer_sequence(*args, **kwargs)
+
+    monkeypatch.setattr(vsr_model, "infer_sequence", recording)
+    opt = _test_opt(None)
+    opt["model"]["generator"]["compute_dtype"] = dtype
+    model = VSRModel(opt)
+    saved = flags()
+    try:
+        cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = (
+            False, True, True)
+        model.infer(rng.random((4, 8, 8, 3)).astype(np.float32))
+        assert seen == [(True, False, False) if dtype == "float32"
+                        else (False, True, True)]
+        assert flags() == (False, True, True)
+    finally:
+        cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
 def test_port_imports_without_jax():
     """Every tecogan_tpu_torch module imports with jax, the JAX package,
     cv2 and yaml blocked; a CPU infer_sequence and a CPU training step
@@ -210,3 +244,119 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[0]) >= 18
+
+
+def test_bf16_long_sequence_drift_bound(rng):
+    """tests/test_golden.py's bound on bf16 recurrence drift, for the
+    port: over a 96-frame clip the bf16 path stays above 45 dB PSNR of the
+    fp32 path on every frame, and the last 16 frames are not more than
+    6 dB below the first 16 (the HR carry does not compound error)."""
+    t, h, w = 96, 32, 48
+    base = rng.random((h * 2, w * 2, 3)).astype(np.float32)
+    for _ in range(2):
+        base = (np.roll(base, 1, 0) + base + np.roll(base, -1, 0)) / 3
+        base = (np.roll(base, 1, 1) + base + np.roll(base, -1, 1)) / 3
+    lr = torch.from_numpy(np.stack(
+        [base[(i % 28):(i % 28) + h, (i % 44):(i % 44) + w]
+         for i in range(t)]))
+    _, net = _port_net(3, 16, 2, 4)
+    a = infer_sequence(net, lr, FRNetConfig(nf=16, nb=2, scale=4),
+                       chunk=16).numpy().astype(np.float64)
+    b = infer_sequence(net, lr, FRNetConfig(nf=16, nb=2, scale=4,
+                                            compute_dtype="bfloat16"),
+                       chunk=16).numpy().astype(np.float64)
+    mse = np.mean((a - b) ** 2, axis=(1, 2, 3))
+    psnr = 10 * np.log10(255.0 ** 2 / np.maximum(mse, 1e-12))
+    assert psnr.min() > 45.0, psnr.min()
+    first, last = psnr[:16].mean(), psnr[-16:].mean()
+    assert last > first - 6.0, (first, last)
+
+
+def test_test_mode_runs_without_jax_cv2_or_yaml(tmp_path):
+    """`python -m tecogan_tpu_torch.main --mode test --gpu_ids -1` with
+    jax, the JAX package, cv2 and yaml blocked: PNG folders in, PNGs and
+    a metrics JSON with PSNR and SSIM out, the tOF and LPIPS gates
+    logged."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "tecogan_tpu", "cv2", "yaml"):
+            sys.modules[name] = None
+        import json, os
+        import numpy as np, torch
+        from tecogan_tpu_torch.main import main
+        from tecogan_tpu_torch.models.convert import jax_from_state_dict
+        from tecogan_tpu_torch.models.networks import FRNet, FRNetConfig
+        from tecogan_tpu_torch.utils.ckpt import save_pytree
+        from tecogan_tpu_torch.utils.png import read_png, write_png
+        root = {str(tmp_path)!r}
+        rng = np.random.default_rng(0)
+        for i in range(4):
+            os.makedirs(f"{{root}}/GT/clip", exist_ok=True)
+            write_png(f"{{root}}/GT/clip/f{{i:02d}}.png",
+                      (rng.random((32, 40, 3)) * 255).astype(np.uint8))
+        net = FRNet.random(FRNetConfig(nf=8, nb=2),
+                           torch.Generator().manual_seed(0))
+        save_pytree(jax_from_state_dict(net.state_dict(), 2, 4),
+                    f"{{root}}/G_iter7.npz")
+        with open(f"{{root}}/test.yml", "w") as f:
+            f.write(f'''# test mode, written as text
+        scale: 4
+        manual_seed: 0
+        dataset:
+          degradation:
+            type: BD
+            sigma: 1.5
+          test1:
+            name: Toy
+            gt_seq_dir: {{root}}/GT
+            lr_seq_dir: ~
+        model:
+          name: FRVSR
+          generator:
+            name: FRNet
+            in_nc: 3
+            out_nc: 3
+            nf: 8
+            nb: 2
+            load_path: {{root}}/G_iter7.npz
+        test:
+          save_res: true
+          res_dir: null
+          save_json: true
+          json_dir: null
+          padding_mode: reflect
+          num_pad_front: 2
+        metric:
+          PSNR:
+            colorspace: y
+          SSIM:
+          tOF:
+            colorspace: y
+          LPIPS:
+            net: alex
+            version: 0.1
+        ''')
+        main(["--exp_dir", root, "--mode", "test", "--opt",
+              f"{{root}}/test.yml", "--gpu_ids", "-1"])
+        with open(f"{{root}}/test/metrics/Toy_avg.json") as f:
+            d = json.load(f)
+        assert list(d) == ["G_iter7"], d
+        assert list(d["G_iter7"]) == ["PSNR", "SSIM"], d
+        assert all(np.isfinite(float(v)) for v in d["G_iter7"].values())
+        out = f"{{root}}/test/results/Toy/G_iter7/clip"
+        assert sorted(os.listdir(out)) == [f"f{{i:02d}}.png"
+                                           for i in range(4)]
+        assert read_png(f"{{out}}/f00.png").shape == (32, 40, 3)
+        for name in ("jax", "tecogan_tpu", "cv2", "yaml"):
+            assert sys.modules[name] is None, name
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["ok"]
+    warnings = [line for line in res.stderr.splitlines()
+                if "[WARNING]" in line]
+    assert len(warnings) == 2, warnings
+    assert "LPIPS disabled" in warnings[0]
+    assert "tOF disabled" in warnings[1] and "cv2" in warnings[1]
