@@ -58,14 +58,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    fused call one kernel launch a call, the cooperative grids one pass at
    the training shapes; with their times beside grid_sample's backward for
    the same gradients, and each kernel's zero-flow and streaming-add
-   controls;
+   controls; then K2 and K3 alone at the STNet assembly's shape
+   (24,3,128,128), bit for bit, K3's grid passes, and K3 alone timed there;
 10. the training path: a VSRModel built like the Vimeo FRVSR train.yml
    (nf=64, nb=10, 4x BD, batch 2 x 10 frames of 136^2 uint8 GT, bf16 mixed
    precision, remat) takes five steps; the K2/K3/K4 launch counts (and the
    K3 launches fused with K4) must be exactly what the step's structure
    gives; ms/step, a profile of one step, then save and resume into a
    fresh model;
-11. one training step on the card against the CPU, fp32 and bf16.
+11. one training step on the card against the CPU, fp32 and bf16;
+12. TecoGAN training: a VSRGANModel on the shipped TecoGAN train.yml (read
+   with the port's YAML reader; a generator made from the seed, VGG19 with
+   random weights behind its allow_random_weights gate) takes five
+   full-width steps (nf=64, nb=10, 4x BD, batch 2 x 10 frames of 136^2
+   uint8 GT, 19 after ping-pong, STNet at 128^2, bf16, remat, the adaptive
+   vote): the K2/K3/K3+K4/K4 launch counts of its structure, every G weight
+   moved, D's exactly on the steps whose vote passed, n_upd_D their count,
+   VGG19 unchanged, finite logs; a step whose vote is forced to fail leaves
+   D's weights and Adam state bit-identical; ms/step (also with
+   update_policy always, which reads nothing back), peak memory, a profile
+   and a breakdown of one step; save and resume;
+13. one GAN step on the card against the CPU, fp32 and bf16.
 
 Every kernel is timed beside its plain version, its device time (from
 torch.profiler), one PyTorch library call that computes the same function
@@ -1990,6 +2003,592 @@ def phase_train_card_vs_cpu(sd, rng):
                  f"outside its band")
 
 
+# ------------------------------------------------------------------ TecoGAN
+
+SHIPPED_GAN_TRAIN_YML = ("experiments_BD/TecoGAN/TecoGAN_VimeoTecoGAN_4xSR_2GPU/"
+                         "train.yml")
+GAN_STEPS = 5
+# the fake STNet input's one warp call at the shipped geometry: the two end
+# slots of 2 x 6 clips of 128^2 (batch 2, 19 frames after ping-pong)
+ASSEMBLY_WARP_SHAPE = (24, 3, 128, 128)
+# card vs CPU, one GAN step (te=3, LR 16^2, STNet at 64^2): fp32 as the
+# FRVSR step (losses rtol 1e-4, each gradient rel L2 1e-3) with the raw-logit
+# means and the vote's distance within 1e-4 absolute; bf16 mixed against
+# fp32: the losses within 2% and G's gradient cosine >= 0.99 (the FRVSR
+# step's bands), but the ping-pong loss within 15% and D's gradient cosine
+# >= 0.93. Those two are set by bf16 itself: the ping-pong loss compares
+# frames whose differences are at bf16's rounding of the HR frames, and D's
+# gradient passes train-mode BatchNorm's backward (a projection that
+# cancels most of it) in five bf16 layers. The port's CPU plain path, bf16
+# against fp32 on the same inputs over four seeds, gives 5.6-8.6% and
+# 0.963-0.978; its D trunk alone (bf16 against fp32) gives cosine 0.9916
+# where the JAX package's gives 0.9911.
+GAN_CMP_HR, GAN_CMP_TE = 64, 3
+GAN_PP_BF16_RTOL, GAN_D_BF16_COS = 0.15, 0.93
+# fp32: D's gradient is held against float64 instead (D's phase on the
+# step's own inputs, on the CPU): train-mode BatchNorm's backward cancels
+# most of it, and fp32 alone, on the CPU, leaves some BatchNorm-bias
+# gradients 1% from float64 on some inputs. The card's fp32 gradient of
+# each D parameter, and D's input gradient in the G phase, must be within
+# 1e-3 of float64, or within 4x of the CPU fp32 one's distance from it;
+# G's gradients, which take D's input gradient through the GAN loss, within
+# 1e-3 or 4x the CPU fp32 input gradient's distance. D's lr is 0 in this
+# comparison: Adam's
+# first step is +-lr on each element, so an element whose gradient sign
+# fp32 cannot fix would move the other way on the two devices, and the G
+# phase, which runs against the updated D, would differ by that.
+GAN_D_F32_CPU_FACTOR = 4.0
+
+
+def _gan_expected_launches(t, remat):
+    """Kernel launches of one TecoGAN step over t frames (after ping-pong
+    doubling), from its structure: the FRVSR step's (``_expected_launches``)
+    plus one K2 for each of the real and the fake STNet assembly, whose
+    backward (the fake one's; its flow merge is gradient-stopped) is K3
+    alone."""
+    frvsr = _expected_launches(t, remat)
+    return {"K2": frvsr["K2"] + 2, "K3": frvsr["K3"] + 1,
+            "K3+K4": frvsr["K3+K4"], "K4": frvsr["K4"]}
+
+
+def phase_assembly_warps(card):
+    """K2 and K3 alone at the STNet assembly's shape: image and flow
+    f32/bf16, NCHW and channels_last, sigma 6/30/300, each bit for bit its
+    plain version, K3 twice the same bits; K3's cooperative grid and its
+    passes; K3 alone timed in bf16 beside its bound,
+    grid_sampler_2d_backward with the image-only mask and its zero-flow and
+    streaming-add controls. Returns K3's numbers there."""
+    import torch
+
+    from tecogan_tpu_torch.ops.warp_cuda import (stride_grid, tile_plan,
+                                                 warp_planes_reference,
+                                                 warp_rgb)
+    from tecogan_tpu_torch.ops.warp_vjp import (_dimage_slots,
+                                                dimage_resident_blocks,
+                                                warp_dimage,
+                                                warp_dimage_reference)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    shape = ASSEMBLY_WARP_SHAPE
+    n, c, h, w = shape
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    n_cases = 0
+    for sigma in (6.0, 30.0, 300.0):
+        for xd in dts:
+            for fd in dts:
+                for fmt in (torch.contiguous_format, torch.channels_last):
+                    x = torch.rand(shape, generator=gen, device=dev).to(
+                        dts[xd]).contiguous(memory_format=fmt)
+                    g = torch.randn(shape, generator=gen, device=dev).to(
+                        dts[xd]).contiguous(memory_format=fmt)
+                    flow = _vjp_flow(gen, dev, n, h, w, sigma).to(dts[fd])
+                    tag = f"{shape} x={xd}/{fmt} flow={fd} sigma={sigma}"
+                    got = warp_rgb(x, flow)
+                    a = warp_dimage(g, flow, dts[xd])
+                    b = warp_dimage(g, flow, dts[xd])
+                    torch.cuda.synchronize()
+                    _require(_equal(got, warp_planes_reference(x, flow))
+                             and got.stride() == x.stride(),
+                             f"K2 differs from its plain version: {tag}")
+                    _require(_equal(a, b) and a.stride() == g.stride()
+                             and _equal(a, warp_dimage_reference(
+                                 g, flow, dts[xd])),
+                             f"K3 alone differs from its plain version or "
+                             f"between two launches: {tag}")
+                    n_cases += 1
+    print(f"K2 and K3 alone at the STNet assembly's shape {shape}: "
+          f"{n_cases} cases bit for bit their plain versions (sigma "
+          f"6/30/300, image and flow f32/bf16, NCHW and channels_last), two "
+          f"K3 launches bit-identical in each")
+    for name in ("tecogan_warp_dimage_bf16_bf16_bf16",
+                 "tecogan_warp_dimage_f32_f32_f32"):
+        resident = dimage_resident_blocks(name, 0, c)
+        grid = stride_grid(n, c, h, w, min(resident, _dimage_slots(0)))
+        tiles, _ = tile_plan(n, h, w, steps=1)
+        passes = math.prod(-(-t // g) for t, g in zip(tiles, grid))
+        print(f"{name} at {shape}: {resident} co-resident blocks (occupancy "
+              f"query), grid {grid} over tiles {tiles}: {passes} pass(es) "
+              f"of the grid-stride loop")
+
+    x = torch.rand(shape, generator=gen, device=dev).bfloat16()
+    g = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    flow = (torch.randn((n, h, w, 2), generator=gen, device=dev)
+            * 6.0).bfloat16()
+    grid = _grid(flow, x.dtype)
+    t = _time_kernel(
+        f"K3 alone time {shape} bf16 g+flow", card,
+        lambda: warp_dimage(g, flow, torch.bfloat16),
+        lambda: warp_dimage_reference(g, flow, torch.bfloat16),
+        lambda: torch.ops.aten.grid_sampler_2d_backward(
+            g, x, grid, 0, 1, True, [True, False]),
+        _bound("K3", (g, flow), (x,), n * h * w, c))
+    zero = torch.zeros_like(flow)
+    _controls(f"K3 alone {shape} zero flow", card,
+              lambda: warp_dimage(g, zero, torch.bfloat16),
+              lambda: warp_dimage_reference(g, zero, torch.bfloat16), x)
+    return {**t, "max_abs_err": 0.0}
+
+
+def _gan_opt(ckpt_dir, g_path):
+    """The shipped TecoGAN train.yml through the port's reader, with what
+    ``--mode train --gpu_ids 0`` adds (is_train, device_ids [0]), and only
+    the generator's weights, VGG19's gate and the checkpoint directory
+    replaced."""
+    from tecogan_tpu_torch.utils.yaml_subset import safe_load
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           SHIPPED_GAN_TRAIN_YML)) as f:
+        opt = safe_load(f.read())
+    opt.update(is_train=True, device_ids=[0])
+    opt["model"]["generator"]["load_path"] = g_path
+    opt["train"]["feature_crit"]["allow_random_weights"] = True
+    opt["train"]["ckpt_dir"] = ckpt_dir
+    return opt
+
+
+def _events_ms(fn):
+    """fn's time on the card's clock (CUDA events, synchronised), in ms,
+    and its result."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _device_totals(fn):
+    """One call of fn under torch.profiler: (wall ms, kernel ms, device
+    events, kernel ms of the warp kernels); the kernel times are None when
+    the profiler recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not rows:
+        return wall, None, 0, None
+    return (wall, sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows),
+            sum(r[0] for r in rows if "warp_" in r[2]) / 1e3)
+
+
+def _gan_breakdown(model, batch, card):
+    """Where a GAN step's device time and device events go, by removing its
+    parts (one profiled call each after a warm-up, update_policy always so
+    D's backward runs every time): the whole step; the step without the
+    perceptual loss (the difference is VGG19's); the FRVSR step over the
+    same ping-pong clip (the generator's unroll, its pixel and warping
+    losses and Adam). What is left is D's: the bicubic frames, the flow
+    merge, the two assemblies, three trunk forwards, two backwards, the
+    ping-pong loss and D's Adam. Walls (under the profiler) are printed
+    too; on a host-bound step they move with the host."""
+    import functools
+
+    from tecogan_tpu_torch.models import steps
+
+    tcfg = model.tcfg._replace(update_policy="always")
+    state = dict(model.state)
+
+    def gan(tc):
+        return lambda: steps.tecogan_train_step(
+            state, batch, cfg_g=model.cfg_g, cfg_d=model.cfg_d, tcfg=tc,
+            sched_g=model.sched_g, sched_d=model.sched_d, vgg=model.vgg)
+
+    clip = batch["gt"].cpu().numpy()
+    doubled = np.concatenate([clip, clip[:, ::-1][:, 1:]], axis=1)
+    gt_pp = model.prepare_training_data({"gt": doubled})["gt"]
+    frvsr = functools.partial(
+        steps.frvsr_train_step,
+        steps.frvsr_init_state(model.net_g, model.state["opt_g"]),
+        {"gt": gt_pp}, cfg_g=model.cfg_g, tcfg=tcfg, sched_g=model.sched_g)
+    parts = {}
+    for label, fn in (("whole", gan(tcfg)),
+                      ("no VGG19", gan(tcfg._replace(feature_crit=None))),
+                      ("generator", frvsr)):
+        fn()
+        parts[label] = _device_totals(fn)
+    print(f"GAN step breakdown ({doubled.shape[1]} frames, update_policy "
+          f"always; wall ms / kernel ms / device events): "
+          + "; ".join(f"{k} {w:.1f} / {_ms(d)} / {e}"
+                      for k, (w, d, e, _) in parts.items()) + f" on {card}")
+    (_, whole, e_whole, warps), (_, no_vgg, e_no_vgg, _), (_, g, e_g, _) = (
+        parts.values())
+    if None in (whole, no_vgg, g):
+        print("GAN step breakdown: no device time recorded; not measured")
+        return
+    for label, ms, events in (
+            ("generator (FRVSR step on the clip)", g, e_g),
+            ("VGG19 (whole - no VGG19)", whole - no_vgg, e_whole - e_no_vgg),
+            ("D and the rest (no VGG19 - generator)", no_vgg - g,
+             e_no_vgg - e_g),
+            ("the warp kernels K2-K4", warps, None)):
+        print(f"  {label}: {ms:.2f} ms of kernels ({ms / whole:.1%})"
+              + ("" if events is None
+                 else f", {events} device events "
+                      f"({events / e_whole:.1%})"))
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.2f}"
+
+
+def phase_gan_train(rng, card):
+    """Five full-width TecoGAN steps through VSRGANModel.train on the
+    shipped train.yml: launch counts, weights that moved (D's exactly on
+    the steps whose vote passed), VGG19 frozen, ms/step, peak memory, a
+    step whose vote is forced to fail (D's weights and Adam state
+    untouched), the adaptive vote's host read against update_policy
+    always, a profile and a breakdown of one step, then save and resume.
+    Returns the K2/K3/K3+K4/K4 launch counts of the five steps."""
+    import copy
+    import functools
+
+    import torch
+
+    from tecogan_tpu_torch.models import VSRGANModel
+    from tecogan_tpu_torch.utils.ckpt import save_pytree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        g_path = os.path.join(tmp, "G_random.npz")
+        save_pytree(_jax_layout_params(rng, NF, NB, SCALE), g_path)
+        opt = _gan_opt(os.path.join(tmp, "ckpt"), g_path)
+        model = VSRGANModel(opt)
+        tcfg, cfg_g, cfg_d = model.tcfg, model.cfg_g, model.cfg_d
+        te = tcfg.tempo_extent
+        _require((cfg_g.nf, cfg_g.nb, cfg_g.scale, cfg_g.remat) == (
+                     NF, NB, SCALE, True) and tcfg.mixed_precision
+                 and type(cfg_d).__name__ == "STNetConfig"
+                 and cfg_d.spatial_size == 128 and te == 10
+                 and tcfg.update_policy == "adaptive"
+                 and tcfg.crop_border_ratio == 0.75
+                 and tcfg.pingpong_crit and tcfg.feature_crit
+                 and all(p.dtype == torch.float32 for p in
+                         [*model.net_g.parameters(),
+                          *model.net_d.parameters()])
+                 and not any(p.requires_grad
+                             for p in model.vgg.parameters()),
+                 "the GAN trainer is not the shipped configuration")
+        n = opt["dataset"]["train"]["batch_size_per_gpu"]
+        size = opt["dataset"]["train"]["crop_size"] + 2 * int(1.5 * 3)
+        batches = [_gt_clips(rng, n, te, size) for _ in range(GAN_STEPS)]
+        g0 = {k: v.clone() for k, v in model.net_g.state_dict().items()}
+        v0 = {k: v.clone() for k, v in model.vgg.state_dict().items()}
+
+        def d_weights():
+            return {k: v.detach().clone()
+                    for k, v in model.net_d.named_parameters()}
+
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        times, votes = [], []
+        for k, gt in enumerate(batches):
+            batch = model.prepare_training_data({"gt": gt})
+            before, n_before = d_weights(), float(model.state["cnt_upd_d"])
+            ms, logs = _events_ms(lambda: model.train(batch))
+            times.append(ms)
+            vals = {key: float(v) for key, v in logs.items()}
+            upd = vals["n_upd_D"] - n_before
+            moved = sum(not torch.equal(before[key], v)
+                        for key, v in model.net_d.named_parameters())
+            print(f"GAN step {k}: "
+                  + " ".join(f"{key} {v:.5f}" for key, v in vals.items())
+                  + f" ({ms:.2f} ms, CUDA events)")
+            _require(all(math.isfinite(v) for v in vals.values()),
+                     f"GAN step {k}: non-finite logs {vals}")
+            _require(upd in (0.0, 1.0)
+                     and (upd == 1.0) == (vals["distance"] < np.float32(
+                         tcfg.update_threshold))
+                     and moved == (len(before) if upd else 0),
+                     f"GAN step {k}: vote {upd} (distance "
+                     f"{vals['distance']}), {moved} of {len(before)} D "
+                     f"tensors moved")
+            votes.append(upd == 1.0)
+        launches = _read_counts()
+        t_all = 2 * te - 1
+        per_step = _gan_expected_launches(t_all, cfg_g.remat)
+        expected = {**dict.fromkeys(launches, 0),
+                    **{key: GAN_STEPS * v for key, v in per_step.items()}}
+        print(f"GAN training launches in {GAN_STEPS} steps: {launches}, "
+              f"expected from the structure (t={t_all} after ping-pong, "
+              f"remat): {expected}")
+        _require(launches == expected, "the GAN path's kernel launch counts "
+                 "differ from its structure")
+        _require(float(model.state["cnt_upd_d"]) == sum(votes),
+                 "n_upd_D differs from the votes that passed")
+        changed = sum(not torch.equal(g0[key], v)
+                      for key, v in model.net_g.state_dict().items())
+        _require(changed == len(g0), f"only {changed} of {len(g0)} G "
+                 f"tensors changed")
+        _require(all(torch.equal(v0[key], v)
+                     for key, v in model.vgg.state_dict().items()),
+                 "VGG19 changed")
+        print(f"GAN ms/step at full width (nf={NF}, nb={NB}, batch "
+              f"{n}x{te}x{size}^2 uint8 GT, {t_all} frames after ping-pong, "
+              f"STNet 128^2, VGG19, bf16, remat, adaptive vote): "
+              f"{min(times[1:]):.2f} (min of steps 1-{GAN_STEPS - 1}; all "
+              f"{[round(x, 2) for x in times]}), votes passed {votes}, on "
+              f"{card}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+        # a vote forced to fail: D's weights and Adam state untouched
+        skip = functools.partial(model._train_step, tcfg=tcfg._replace(
+            update_threshold=-math.inf))
+        before = d_weights()
+        adam = copy.deepcopy(model.state["opt_d"].state_dict())
+        n_before = float(model.state["cnt_upd_d"])
+        model.state, logs = skip(model.state, batch)
+        after = model.state["opt_d"].state_dict()
+        same_adam = adam["param_groups"] == after["param_groups"] and all(
+            torch.equal(after["state"][i][key], v)
+            for i, st in adam["state"].items() for key, v in st.items())
+        _require(all(torch.equal(before[key], v)
+                     for key, v in model.net_d.named_parameters())
+                 and same_adam and float(logs["l_gan_D"]) == 0.0
+                 and float(logs["n_upd_D"]) == n_before,
+                 "a skipped vote changed D or its Adam state")
+        print("GAN step with the vote forced to fail: D's weights and Adam "
+              "state bit-identical, l_gan_D 0, n_upd_D unchanged")
+
+        # the adaptive vote's one host read a step, against always, in
+        # turns (adaptive steps whose vote failed skip D's backward and are
+        # left out)
+        always = functools.partial(model._train_step, tcfg=tcfg._replace(
+            update_policy="always"))
+        t_adaptive, t_always = [], []
+        for _ in range(4):
+            n_before = float(model.state["cnt_upd_d"])
+            ms, logs = _events_ms(lambda: model.train(batch))
+            if float(logs["n_upd_D"]) > n_before:
+                t_adaptive.append(ms)
+            ms, (model.state, _) = _events_ms(
+                lambda: always(model.state, batch))
+            t_always.append(ms)
+        print(f"GAN ms/step in turns: update_policy always (no host read) "
+              f"{[round(x, 2) for x in t_always]}, adaptive (vote passed) "
+              f"{[round(x, 2) for x in t_adaptive]}; min "
+              f"{min(t_always):.2f} against "
+              f"{min(t_adaptive) if t_adaptive else float('nan'):.2f} on "
+              f"{card}")
+
+        _profile(lambda: model.train(batch), "one GAN step", card,
+                 ("warp_planes_kernel", "warp_dimage_kernel",
+                  "warp_dimage_dflow_kernel", "warp_dflow_kernel"))
+        _gan_breakdown(model, batch, card)
+
+        step = model.state["step"]
+        model.save(step)
+        model.save_training_state_now(step)
+        files = sorted(os.listdir(opt["train"]["ckpt_dir"]))
+        _require(files == sorted([f"G_iter{step}.npz", f"D_iter{step}.npz",
+                                  f"state_iter{step}.pth"]),
+                 f"checkpoint files {files}")
+        fresh = VSRGANModel(opt)
+        state, resumed = fresh.try_resume(fresh.state)
+        same = resumed and state["step"] == step and all(
+            torch.equal(state[net].state_dict()[key], v)
+            for net in ("g", "d")
+            for key, v in model.state[net].state_dict().items())
+        for name in ("opt_g", "opt_d"):
+            a = model.state[name].state_dict()
+            b = state[name].state_dict()
+            same = same and a["param_groups"] == b["param_groups"] and all(
+                torch.equal(b["state"][i][key], v)
+                for i, st in a["state"].items() for key, v in st.items())
+        same = same and torch.equal(state["cnt_upd_d"],
+                                    model.state["cnt_upd_d"])
+        _require(same, "the resumed GAN state differs")
+        print(f"GAN save + resume: {files} written; a fresh model resumed "
+              f"step {step} with identical G, D (BatchNorm stats included), "
+              f"both Adam states and n_upd_D")
+    return {key: launches[key] for key in ("K2", "K3", "K3+K4", "K4")}
+
+
+def _one_gan_step(sds, batch, device, mixed, d_inputs=None):
+    """One TecoGAN step from the state dicts ``sds`` (G, D, VGG19) on
+    ``device``: the shipped losses, te=3, STNet at GAN_CMP_HR^2,
+    update_policy always, D's lr 0 (its backward and Adam step run, its
+    weights stay). Returns (logs as floats, {name: gradient as fp32
+    CPU tensor} for G's and D's parameters); ``d_inputs``, a list, receives
+    the D phase's real and fake inputs."""
+    import unittest.mock
+
+    import torch
+    from torch.func import functional_call
+
+    from tecogan_tpu_torch.models import schedules, steps
+    from tecogan_tpu_torch.models.networks import (VGG19, DTrunk, FRNet,
+                                                   FRNetConfig, STNetConfig)
+
+    cfg = FRNetConfig(nf=NF, nb=NB, scale=SCALE)
+    net = FRNet.from_state_dict(cfg, sds["g"], device)
+    cfg_d = STNetConfig(spatial_size=GAN_CMP_HR)
+    net_d = DTrunk.from_state_dict(cfg_d, sds["d"], device)
+    vgg = VGG19.from_state_dict(sds["vgg"], device)
+    tcfg = _gan_cmp_config(mixed)
+    opt_g, sched_g = schedules.make_adam({"lr": 5e-5}, net.parameters())
+    opt_d, sched_d = schedules.make_adam({"lr": 0.0}, net_d.parameters())
+    state = steps.tecogan_init_state(net, net_d, opt_g, opt_d)
+    seen = [] if d_inputs is None else d_inputs
+
+    def recording(module, params, args):
+        if module is net_d and len(seen) < 2:
+            seen.append(args[0].detach().clone())
+        return functional_call(module, params, args)
+
+    with unittest.mock.patch.object(steps, "functional_call", recording):
+        _, logs = steps.tecogan_train_step(
+            state, {"gt": torch.from_numpy(batch).to(device)}, cfg_g=cfg,
+            cfg_d=cfg_d, tcfg=tcfg, sched_g=sched_g, sched_d=sched_d,
+            vgg=vgg)
+    grads = {f"{tag}.{k}": p.grad.float().cpu()
+             for tag, m in (("g", net), ("d", net_d))
+             for k, p in m.named_parameters()}
+    return {k: float(v) for k, v in logs.items()}, grads
+
+
+def _gan_cmp_config(mixed):
+    """The shipped TecoGAN losses at te=3, update_policy always."""
+    from tecogan_tpu_torch.models import steps
+
+    return steps.make_train_config(_gan_opt("", ""))._replace(
+        tempo_extent=GAN_CMP_TE, update_policy="always",
+        mixed_precision=mixed)
+
+
+def _d_phase_grads(sd_d, x_real, x_fake, device, dtype):
+    """The GAN step's D phase alone (D's loss on the real, then the fake
+    input: D's gradients) and the G phase's D input gradient (the GAN loss
+    of a forward on the fake input alone, with respect to that input), D
+    in ``dtype``; float64 CPU tensors, the input's under "input"."""
+    import torch
+
+    from tecogan_tpu_torch.models.losses import define_criterion
+    from tecogan_tpu_torch.models.networks import DTrunk, STNetConfig
+
+    net = DTrunk.from_state_dict(STNetConfig(spatial_size=GAN_CMP_HR), sd_d,
+                                 device).to(dtype)
+    crit = define_criterion(_gan_cmp_config(False).gan_crit)
+    real, _ = net(x_real.to(device, dtype))
+    fake, _ = net(x_fake.to(device, dtype))
+    (crit(real, True) + crit(fake, False)).backward()
+    grads = {k: p.grad.double().cpu() for k, p in net.named_parameters()}
+    x = x_fake.to(device, dtype).requires_grad_()
+    grads["input"] = torch.autograd.grad(crit(net(x)[0], True),
+                                         x)[0].double().cpu()
+    return grads
+
+
+def phase_gan_card_vs_cpu(sd, rng):
+    """One GAN step on the card and on the CPU, same weights and batch
+    (nf=64, nb=10, te=3: 5 frames after ping-pong, LR 16x16, STNet at
+    64^2, the shipped losses, update_policy always, D's lr 0), TF32 off;
+    in fp32 D's gradients and its input gradient, on the step's own D
+    inputs, also against float64."""
+    import torch
+
+    from tecogan_tpu_torch.models.networks import (VGG19, DTrunk,
+                                                   STNetConfig)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sds = {"g": sd,
+           "d": DTrunk.random(STNetConfig(spatial_size=GAN_CMP_HR),
+                              torch.Generator().manual_seed(SEED + 1))
+           .state_dict(),
+           "vgg": VGG19.random(torch.Generator().manual_seed(SEED + 2))
+           .state_dict()}
+    batch = _gt_clips(rng, 2, GAN_CMP_TE,
+                      GAN_CMP_HR + 2 * int(1.5 * 3))
+    d_inputs = []
+    cpu_logs, cpu_g = _one_gan_step(sds, batch, "cpu", mixed=False,
+                                    d_inputs=d_inputs)
+
+    ref = _d_phase_grads(sds["d"], *d_inputs, "cpu", torch.float64)
+    cpu32 = _d_phase_grads(sds["d"], *d_inputs, "cpu", torch.float32)
+    card = _d_phase_grads(sds["d"], *d_inputs, "cuda", torch.float32)
+    err = {k: (float((card[k] - v).norm() / v.norm()),
+               float((cpu32[k] - v).norm() / v.norm())) for k, v in ref.items()}
+    bad = [k for k, (e_card, e_cpu) in err.items()
+           if e_card > max(STEP_F32_GRAD_REL, GAN_D_F32_CPU_FACTOR * e_cpu)]
+    worst = max(err, key=lambda k: err[k][0])
+    print(f"GAN D phase fp32 against float64 (the step's D inputs "
+          f"{tuple(d_inputs[0].shape)}, CPU float64 reference): card max rel "
+          f"L2 {err[worst][0]:.3g} ({worst}; the CPU fp32's there "
+          f"{err[worst][1]:.3g}), CPU fp32 max "
+          f"{max(e[1] for e in err.values()):.3g}; D's input gradient (G "
+          f"phase) card {err['input'][0]:.3g}, CPU {err['input'][1]:.3g} "
+          f"[each <= {STEP_F32_GRAD_REL} or <= {GAN_D_F32_CPU_FACTOR}x the "
+          f"CPU fp32's]: {'ok' if not bad else 'FAIL ' + str(bad)}")
+    _require(not bad, "the card's fp32 D gradients are further from float64 "
+             "than their band")
+    # G's gradient through the GAN loss passes D's input gradient, so G's
+    # band widens to what fp32 leaves of that one
+    g_band = max(STEP_F32_GRAD_REL, GAN_D_F32_CPU_FACTOR * err["input"][1])
+
+    losses = [k for k in cpu_logs if k.startswith("l_") and cpu_logs[k]]
+    for mixed in (False, True):
+        logs, grads = _one_gan_step(sds, batch, "cuda", mixed=mixed)
+        rel = {k: abs(logs[k] - cpu_logs[k]) / abs(cpu_logs[k])
+               for k in losses}
+        logit_err = {k: abs(logs[k] - cpu_logs[k]) for k in (
+            "p_real_D", "p_fake_D", "p_fake_G", "distance")}
+        grad_rel = {k: float((grads[k] - cpu_g[k]).norm() / cpu_g[k].norm())
+                    for k in cpu_g}
+
+        def cos(tag):
+            # float64: an fp32 cosine over millions of terms rounds past 1
+            a = torch.cat([grads[k].flatten() for k in cpu_g
+                           if k.startswith(tag)]).double()
+            b = torch.cat([cpu_g[k].flatten() for k in cpu_g
+                           if k.startswith(tag)]).double()
+            return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+        cos_g, cos_d = cos("g."), cos("d.")
+        worst_g = max((k for k in grad_rel if k.startswith("g.")),
+                      key=grad_rel.get)
+        if mixed:
+            ok = (all(v <= (GAN_PP_BF16_RTOL if k == "l_pp_G"
+                            else STEP_BF16_RTOL) for k, v in rel.items())
+                  and cos_g >= STEP_BF16_GRAD_COS
+                  and cos_d >= GAN_D_BF16_COS)
+            band = (f"losses <= {STEP_BF16_RTOL} (l_pp_G <= "
+                    f"{GAN_PP_BF16_RTOL}), G cosine >= {STEP_BF16_GRAD_COS}, "
+                    f"D cosine >= {GAN_D_BF16_COS}")
+        else:
+            ok = (max(rel.values()) <= STEP_F32_RTOL
+                  and max(logit_err.values()) <= 1e-4
+                  and logs["n_upd_D"] == cpu_logs["n_upd_D"]
+                  and grad_rel[worst_g] <= g_band)
+            band = (f"losses <= {STEP_F32_RTOL}, logit means and distance "
+                    f"<= 1e-4 absolute, G's per-parameter gradient <= "
+                    f"{g_band:.3g}; D's against float64 above")
+        print(f"GAN step card {'bf16 mixed' if mixed else 'fp32'} vs CPU "
+              f"fp32 (nf={NF}, nb={NB}, te={GAN_CMP_TE}, LR 16x16, STNet "
+              f"{GAN_CMP_HR}^2, TF32 off): losses {logs} vs {cpu_logs}; "
+              f"loss rel diffs { {k: round(v, 6) for k, v in rel.items()} }, "
+              f"logit means/distance abs diffs "
+              f"{ {k: float(f'{v:.3g}') for k, v in logit_err.items()} }; "
+              f"G gradient max rel L2 {grad_rel[worst_g]:.3g} ({worst_g}), "
+              f"D's {max(v for k, v in grad_rel.items() if k[0] == 'd'):.3g}"
+              f"; cosine G {cos_g:.6f} D {cos_d:.6f} [{band}]: "
+              f"{'ok' if ok else 'FAIL'}")
+        _require(ok, f"card {'bf16' if mixed else 'fp32'} GAN step outside "
+                 f"its band")
+
+
 def main() -> int:
     import torch
 
@@ -2035,8 +2634,12 @@ def main() -> int:
     phase_card_vs_cpu(sd, rng)
 
     times.update(phase_k234(card))
+    phase_assembly_warps(card)
     launches.update(phase_train(rng, card))
     phase_train_card_vs_cpu(sd, rng)
+    for key, count in phase_gan_train(rng, card).items():
+        launches[key] += count
+    phase_gan_card_vs_cpu(sd, rng)
 
     _require("jax" not in sys.modules and "yaml" not in sys.modules,
              "jax or yaml was imported")

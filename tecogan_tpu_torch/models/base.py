@@ -4,7 +4,8 @@ the running log and checkpoints.
 
 Checkpoints: generator weights go to ``G_iter{N}.npz`` in the JAX
 package's layout; the full training state (weights, Adam state, step,
-running log) to ``state_iter{N}.pth`` with ``torch.save``, and
+running log; for TecoGAN also the discriminator, its Adam state and its
+update count) to ``state_iter{N}.pth`` with ``torch.save``, and
 ``try_resume`` reloads the newest one with ``weights_only=True``.
 """
 
@@ -148,24 +149,33 @@ class BaseVSRModel:
         ckpt_io.save_pytree(tree, path)
         _log.info("Saved checkpoint: %s", path)
 
+    # the nets a training state may hold, each with its optimizer
+    _NETS = (("g", "opt_g"), ("d", "opt_d"))
+
     def save_training_state(self, state, current_iter):
-        """Full-state checkpoint: weights, optimizer, step, running log."""
+        """Full-state checkpoint: weights (with the discriminator's
+        BatchNorm stats), optimizers, step, D's update count, running
+        log."""
         path = osp.join(self.ckpt_dir, f"state_iter{current_iter}.pth")
         os.makedirs(self.ckpt_dir, exist_ok=True)
         tmp = f"{path}.tmp.{os.getpid()}"
-        torch.save({
-            "g": state["g"].state_dict(),
-            "opt_g": state["opt_g"].state_dict(),
-            "step": state["step"],
-            "running_log": dict(state["running_log"]),
-        }, tmp)
+        saved = {"step": state["step"],
+                 "running_log": dict(state["running_log"])}
+        for net, opt in self._NETS:
+            if net in state:
+                saved[net] = state[net].state_dict()
+                saved[opt] = state[opt].state_dict()
+        if "cnt_upd_d" in state:
+            saved["cnt_upd_d"] = state["cnt_upd_d"]
+        torch.save(saved, tmp)
         os.replace(tmp, path)
         _log.info("Saved checkpoint: %s", path)
 
     def try_resume(self, state):
         """Resume from the newest ``state_iter{N}.pth`` in ckpt_dir, if any.
-        Returns (state, resumed). A checkpoint whose weights do not match
-        the configured net (other widths or depth) raises ValueError."""
+        Returns (state, resumed). A checkpoint whose nets do not match the
+        configured ones (other widths or depth, a missing discriminator)
+        raises ValueError."""
         path = ckpt_io.latest_training_state(self.ckpt_dir)
         if path is None:
             return state, False
@@ -173,21 +183,29 @@ class BaseVSRModel:
         # its step counters on the host, so that a step reads no device
         # value back)
         saved = torch.load(path, map_location="cpu", weights_only=True)
-        net = state["g"]
-        live = net.state_dict()
-        if set(saved["g"]) != set(live):
-            raise ValueError(
-                f"checkpoint {path} does not match the configured model: "
-                f"keys {sorted(set(saved['g']) ^ set(live))} differ")
-        for k, v in live.items():
-            if tuple(saved["g"][k].shape) != tuple(v.shape):
+        nets = [(net, opt) for net, opt in self._NETS if net in state]
+        for net, _ in nets:
+            live = state[net].state_dict()
+            theirs = saved.get(net, {})
+            if set(theirs) != set(live):
                 raise ValueError(
                     f"checkpoint {path} does not match the configured "
-                    f"model: {k} has shape {tuple(saved['g'][k].shape)}, "
-                    f"expected {tuple(v.shape)}")
-        net.load_state_dict(saved["g"])
-        state["opt_g"].load_state_dict(saved["opt_g"])
+                    f"model: {net} keys "
+                    f"{sorted(set(theirs) ^ set(live))} differ")
+            for k, v in live.items():
+                if tuple(theirs[k].shape) != tuple(v.shape):
+                    raise ValueError(
+                        f"checkpoint {path} does not match the configured "
+                        f"model: {net} {k} has shape "
+                        f"{tuple(theirs[k].shape)}, expected "
+                        f"{tuple(v.shape)}")
+        for net, opt in nets:
+            state[net].load_state_dict(saved[net])
+            state[opt].load_state_dict(saved[opt])
         state["step"] = int(saved["step"])
+        if "cnt_upd_d" in state:
+            state["cnt_upd_d"] = saved["cnt_upd_d"].to(self.device,
+                                                       torch.float32)
         state["running_log"] = {
             k: saved["running_log"][k].to(self.device, torch.float32)
             for k in state["running_log"]}

@@ -1,10 +1,12 @@
-"""Network factory (port of ``tecogan_tpu/models/networks/__init__.py``'s
-generator half)."""
+"""Network factories (port of ``tecogan_tpu/models/networks/__init__.py``)."""
 
+from .discriminators import (DTrunk, SNetConfig, STNetConfig, build_d_input,
+                             build_flow_merge, build_stnet_input)
 from .fnet import FNet
 from .frnet import (FRNet, FRNetConfig, forward_sequence, infer_sequence,
                     infer_sequence_batch)
 from .srnet import SRNet
+from .vgg import VGG19
 
 
 def define_generator(opt):
@@ -33,11 +35,42 @@ def define_generator(opt):
                  FRNet.random(cfg, generator, device))
 
 
+def define_discriminator(opt):
+    """opt -> (STNetConfig | SNetConfig, build_fn) for 'stnet' | 'snet';
+    ``build_fn(generator, device)`` draws a ``DTrunk``'s weights from a
+    ``torch.Generator``. The input's spatial size is the training crop:
+    ``crop_size`` for BD, ``gt_crop_size`` for BI."""
+    d = opt["model"]["discriminator"]
+    degradation = opt["dataset"]["degradation"]["type"]
+    train_ds = opt["dataset"]["train"]
+    spatial_size = (train_ds["crop_size"] if degradation == "BD"
+                    else train_ds["gt_crop_size"])
+    name = d["name"].lower()
+    if name == "stnet":
+        cfg = STNetConfig(in_nc=d["in_nc"], spatial_size=spatial_size,
+                          tempo_range=d["tempo_range"])
+    elif name == "snet":
+        cfg = SNetConfig(in_nc=d["in_nc"], spatial_size=spatial_size,
+                         use_cond=d["use_cond"])
+    else:
+        raise ValueError(f"Unrecognized discriminator: {d['name']}")
+    return cfg, (lambda generator, device="cpu":
+                 DTrunk.random(cfg, generator, device))
+
+
 __all__ = [
+    "DTrunk",
     "FNet",
     "FRNet",
     "FRNetConfig",
+    "SNetConfig",
     "SRNet",
+    "STNetConfig",
+    "VGG19",
+    "build_d_input",
+    "build_flow_merge",
+    "build_stnet_input",
+    "define_discriminator",
     "define_generator",
     "forward_sequence",
     "infer_sequence",

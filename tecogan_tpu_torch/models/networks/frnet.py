@@ -29,7 +29,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-import math
 
 import numpy as np
 import torch
@@ -38,6 +37,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ...nn import init_torch_default
 from ...ops.color import quantize_uint8
 from ...ops.resize import get_upsampling_fn, resize_matrix, upsample_mode
 from ...ops.spatial import space_to_depth
@@ -76,19 +76,6 @@ class FRNetConfig:
         return _DTYPES[self.compute_dtype]
 
 
-def _init_torch_default(module: nn.Module, generator: torch.Generator):
-    """torch's default conv init, U(+-1/sqrt(fan_in)) for weight and bias,
-    drawn from ``generator``. fan_in is weight.size(1) * kh * kw for Conv2d
-    and ConvTranspose2d alike (torch's own rule)."""
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            w = m.weight
-            bound = 1.0 / math.sqrt(w.size(1) * w.size(2) * w.size(3))
-            with torch.no_grad():
-                w.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
-
-
 def _reflect_pad_flow(flow: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Reflect-pad an (n, 2, h8, w8) flow up to (n, 2, h, w): FNet's pools
     floor sizes to multiples of 8 (`tecogan_nets.py:239-241`)."""
@@ -118,7 +105,7 @@ class FRNet(nn.Module):
         with torch.device("meta"):
             net = cls(cfg)
         net = net.to_empty(device="cpu")
-        _init_torch_default(net, generator)
+        init_torch_default(net, generator)
         return net.to(device).eval()
 
     @classmethod

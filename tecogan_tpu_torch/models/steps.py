@@ -1,5 +1,5 @@
-"""The FRVSR training step (port of ``tecogan_tpu/models/steps.py``'s FRVSR
-half).
+"""The training steps: FRVSR's pixel-loss step and TecoGAN's GAN step (port
+of ``tecogan_tpu/models/steps.py``).
 
 One step ``frvsr_train_step(state, batch)`` normalises the uint8 batch on
 the device, applies the BD degradation with its GT border crop, runs the
@@ -13,6 +13,15 @@ the JAX package's: every floating parameter is cast to bf16 for the forward
 and the inputs are bf16, while the master weights, the optimizer state and
 the loss accumulation stay fp32. It is not ``torch.autocast``, which would
 keep some ops in fp32 and cast op by op.
+
+``tecogan_train_step`` follows `vsrgan_model.py:98-286` in the JAX
+package's order: the generator runs once; the D inputs are assembled once
+(the real one without a graph, the fake one with it); the discriminator
+runs on the real input, then on the fake one (two forwards, each with its
+own BatchNorm statistics) and updates first, and only when the adaptive
+vote passes; the generator's losses are then taken against the updated
+discriminator, whose third forward moves the BatchNorm running stats a
+third time.
 """
 
 from __future__ import annotations
@@ -20,20 +29,23 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.func import functional_call
 
 from ..nn import cast_params
 from ..ops.degrade import bd_border_size, downsample_bd
 from ..ops.warp_vjp import backward_warp_diff
 from .losses import define_criterion
-from .networks import forward_sequence
+from .networks import (STNetConfig, build_d_input, build_flow_merge,
+                       forward_sequence)
 
 __all__ = ["TrainConfig", "make_train_config", "normalize_batch",
            "prepare_bd_batch", "FRVSR_LOG_KEYS", "frvsr_train_step",
-           "frvsr_init_state"]
+           "frvsr_init_state", "TECOGAN_LOG_KEYS", "tecogan_train_step",
+           "tecogan_init_state"]
 
 
 class TrainConfig(NamedTuple):
-    """Static FRVSR training configuration distilled from the YAML opt."""
+    """Static training configuration distilled from the YAML opt."""
     scale: int
     degradation: str  # 'BD' | 'BI'
     sigma: float
@@ -43,10 +55,22 @@ class TrainConfig(NamedTuple):
     # bf16 forward/backward with fp32 master weights; the YAML default
     # (make_train_config) is on, a directly built config is fp32
     mixed_precision: bool = False
+    # the GAN step's: the clip length before ping-pong doubling, the
+    # remaining criteria, the discriminator's update policy and the STNet
+    # input's border crop (1.0: none), with the JAX package's defaults
+    tempo_extent: int = 10
+    feature_crit: dict | None = None
+    pingpong_crit: dict | None = None
+    feature_matching_crit: dict | None = None
+    gan_crit: dict | None = None
+    update_policy: str = "adaptive"
+    update_threshold: float = 0.4
+    crop_border_ratio: float = 1.0
 
 
 def make_train_config(opt) -> TrainConfig:
     t = opt["train"]
+    d_opt = t.get("discriminator", {})
 
     def crit(name):
         c = t.get(name)
@@ -59,6 +83,14 @@ def make_train_config(opt) -> TrainConfig:
         pixel_crit=crit("pixel_crit"),
         warping_crit=crit("warping_crit"),
         mixed_precision=t.get("mixed_precision", True),
+        tempo_extent=t.get("tempo_extent", 10),
+        feature_crit=crit("feature_crit"),
+        pingpong_crit=crit("pingpong_crit"),
+        feature_matching_crit=crit("feature_matching_crit"),
+        gan_crit=crit("gan_crit"),
+        update_policy=d_opt.get("update_policy", "adaptive"),
+        update_threshold=d_opt.get("update_threshold", 0.4),
+        crop_border_ratio=d_opt.get("crop_border_ratio", 1.0),
     )
 
 
@@ -189,4 +221,231 @@ def frvsr_init_state(net, opt_g) -> dict:
         "running_log": {k: torch.zeros((), dtype=torch.float32,
                                        device=device)
                         for k in FRVSR_LOG_KEYS},
+    }
+
+
+# --------------------------------------------------------------------------
+# TecoGAN step
+# --------------------------------------------------------------------------
+
+TECOGAN_LOG_KEYS = (
+    "l_gan_D", "p_real_D", "p_fake_D", "distance", "n_upd_D",
+    "l_pix_G", "l_warp_G", "l_feat_G", "l_pp_G", "l_fm_G", "l_gan_G",
+    "p_fake_G",
+)
+
+
+def _dbl(x: torch.Tensor) -> torch.Tensor:
+    """Ping-pong doubling along the time axis: frames 0..t-1, t-2..0
+    (`vsrgan_model.py:112-119`)."""
+    return torch.cat([x, x.flip(1)[:, 1:]], dim=1)
+
+
+def _d_params(net_d, dt: torch.dtype, mixed: bool, detach: bool = False):
+    """D's parameters for a forward: under mixed precision the conv and
+    dense weights in the compute dtype and BatchNorm's scale and bias in
+    fp32 (the JAX package's ``_cast_d``); ``detach``: without a graph to
+    the masters."""
+    bn = net_d.bn_parameter_names()
+    params = {}
+    for k, v in net_d.named_parameters():
+        v = v.detach() if detach else v
+        params[k] = v.to(dt) if mixed and k not in bn else v
+    return params
+
+
+def tecogan_train_step(state, batch, *, cfg_g, cfg_d, tcfg: TrainConfig,
+                       sched_g, sched_d, vgg=None, log_decay: float = 0.99):
+    """One TecoGAN iteration (`vsrgan_model.py:98-286`).
+
+    ``state`` is ``tecogan_init_state``'s dict: its nets and optimizers are
+    updated in place, its step, update count and running log replaced.
+    ``batch`` as ``frvsr_train_step``'s. ``vgg``: the frozen ``VGG19`` of
+    the perceptual loss (required when ``tcfg.feature_crit`` is set).
+    G's update k uses the lr ``sched_g(k)``; D's update in step k uses
+    ``sched_d(k)``, the global step, however many updates the vote skipped.
+    Under ``update_policy: adaptive`` the vote is read back to the host (one
+    device sync a step) to decide whether D's backward and Adam step run;
+    a skipped step leaves D's weights and Adam state as they were. Returns
+    (state, logs), the logs 0-d fp32 device tensors.
+    """
+    dt = torch.bfloat16 if tcfg.mixed_precision else torch.float32
+    mixed = tcfg.mixed_precision
+    batch = normalize_batch(batch, dt)
+    if tcfg.degradation == "BD" and "lr" not in batch:
+        gt, lr = prepare_bd_batch(batch["gt"], tcfg.scale, tcfg.sigma)
+    else:
+        gt, lr = batch["gt"], batch["lr"]
+    n, t, lh, lw, c = lr.shape
+    _check_train_crop(lh, lw)
+    gh, gw = gt.shape[2], gt.shape[3]
+
+    pix_crit = define_criterion(tcfg.pixel_crit)
+    warp_crit = define_criterion(tcfg.warping_crit)
+    feat_crit = define_criterion(tcfg.feature_crit)
+    pp_crit = define_criterion(tcfg.pingpong_crit)
+    fm_crit = define_criterion(tcfg.feature_matching_crit)
+    gan_crit = define_criterion(tcfg.gan_crit)
+    if gan_crit is None:
+        raise ValueError(
+            "TecoGAN training requires train.gan_crit (reference "
+            "vsrgan_model.py:147-198 always defines it); train without a "
+            "discriminator by using model.name: FRVSR instead")
+    if feat_crit is not None and vgg is None:
+        raise ValueError("train.feature_crit needs the VGG19 (vgg=)")
+    use_pp = pp_crit is not None
+    net_g, net_d = state["g"], state["d"]
+    opt_g, opt_d = state["opt_g"], state["opt_d"]
+    step = state["step"]
+
+    # the bicubic-conditioned frames for D (`vsrgan_model.py:105-108`),
+    # (n, t, c, H, W)
+    with torch.no_grad():
+        bi = net_g.srnet.upsample(
+            lr.permute(0, 1, 4, 2, 3).reshape(n * t, c, lh, lw)).reshape(
+                n, t, c, gh, gw)
+    if use_pp:
+        lr, gt, bi = _dbl(lr), _dbl(gt), _dbl(bi)
+
+    # === G forward, once: the D phase and the G losses share it ===
+    params_g = dict(net_g.named_parameters())
+    if mixed:
+        params_g = cast_params(params_g, dt)
+    out = forward_sequence(net_g, lr, cfg_g, params_g)
+    hr = out["hr_data"]
+    hr_c, gt_c = hr.permute(0, 1, 4, 2, 3), gt.permute(0, 1, 4, 2, 3)
+    ctx = {"bi_data": bi, "crop_border_ratio": tcfg.crop_border_ratio}
+    if isinstance(cfg_d, STNetConfig):
+        ctx["flow_merge"] = build_flow_merge(out["hr_flow"], lr, net_g,
+                                             params_g, use_pp)
+
+    # the D inputs, each assembled once: the real one without a graph, the
+    # fake one with it (detached for the D phase, whole for the G phase)
+    with torch.no_grad():
+        x_real = build_d_input(gt_c, ctx, cfg_d)
+    x_fake_g = build_d_input(hr_c, ctx, cfg_d)
+
+    # === D phase: two forwards, the vote, then the update if it passes ===
+    pd = _d_params(net_d, dt, mixed)
+    real_logits, real_feats = functional_call(net_d, pd, (x_real,))
+    fake_logits, _ = functional_call(net_d, pd, (x_fake_g.detach(),))
+    loss_d = gan_crit(real_logits, True) + gan_crit(fake_logits, False)
+    with torch.no_grad():
+        rl32, fl32 = real_logits.float(), fake_logits.float()
+        distance = (torch.log(torch.sigmoid(rl32) + 1e-8).mean()
+                    - torch.log(torch.sigmoid(fl32) + 1e-8).mean())
+    upd_d = (tcfg.update_policy != "adaptive"
+             or bool(distance < tcfg.update_threshold))
+    if upd_d:
+        opt_d.zero_grad(set_to_none=True)
+        loss_d.backward()
+        for group in opt_d.param_groups:
+            group["lr"] = sched_d(step)
+        opt_d.step()
+        l_gan_d = loss_d.detach()
+        state["cnt_upd_d"] = state["cnt_upd_d"] + 1.0
+    else:
+        l_gan_d = torch.zeros((), dtype=torch.float32, device=hr.device)
+    real_feats = [f.detach() for f in real_feats]
+    del loss_d, real_logits, fake_logits, pd
+
+    # === G phase: the losses against the UPDATED discriminator ===
+    logs = {}
+    loss = 0.0
+    if pix_crit is not None:
+        logs["l_pix_G"] = tcfg.pixel_crit.get("weight", 1) * pix_crit(hr, gt)
+        loss = loss + logs["l_pix_G"]
+    if warp_crit is not None:
+        logs["l_warp_G"] = tcfg.warping_crit.get("weight", 1) * _warp_loss(
+            warp_crit, out)
+        loss = loss + logs["l_warp_G"]
+    if feat_crit is not None:
+        layers = tuple(tcfg.feature_crit.get("feature_layers",
+                                             [8, 17, 26, 35]))
+        t_all = hr.shape[1]
+        params_v = dict(vgg.named_parameters())
+        if mixed:
+            params_v = cast_params(params_v, dt)
+        hr_f = functional_call(vgg, params_v, (
+            hr_c.reshape(n * t_all, c, gh, gw), layers))
+        with torch.no_grad():
+            if use_pp:
+                # the doubled gt repeats its first te frames mirrored: VGG
+                # runs on the unique ones and their features are doubled
+                te = tcfg.tempo_extent
+                gt_f = [_dbl(f.unflatten(0, (n, te))).flatten(0, 1)
+                        for f in functional_call(vgg, params_v, (
+                            gt_c[:, :te].reshape(n * te, c, gh, gw),
+                            layers))]
+            else:
+                gt_f = functional_call(vgg, params_v, (
+                    gt_c.reshape(n * t_all, c, gh, gw), layers))
+        # the cosine similarity reduces the last axis: the channels
+        l_feat = sum(feat_crit(hf.movedim(1, -1), gf.movedim(1, -1))
+                     for hf, gf in zip(hr_f, gt_f))
+        logs["l_feat_G"] = tcfg.feature_crit.get("weight", 1) * l_feat
+        loss = loss + logs["l_feat_G"]
+    if pp_crit is not None:
+        te = tcfg.tempo_extent
+        logs["l_pp_G"] = tcfg.pingpong_crit.get("weight", 1) * pp_crit(
+            hr[:, :te - 1], hr[:, te:].flip(1))
+        loss = loss + logs["l_pp_G"]
+    # D's third forward (its BatchNorm running stats move a third time), on
+    # the shared fake input; D's parameters take no gradient
+    fake_g_logits, fake_g_feats = functional_call(
+        net_d, _d_params(net_d, dt, mixed, detach=True), (x_fake_g,))
+    if fm_crit is not None:
+        layer_norm = tcfg.feature_matching_crit.get(
+            "layer_norm", [12.0, 14.0, 24.0, 100.0])
+        l_fm = sum(fm_crit(ff, rf) / ln for ff, rf, ln in
+                   zip(fake_g_feats, real_feats, layer_norm))
+        logs["l_fm_G"] = tcfg.feature_matching_crit.get("weight", 1) * l_fm
+        loss = loss + logs["l_fm_G"]
+    logs["l_gan_G"] = tcfg.gan_crit.get("weight", 1) * gan_crit(
+        fake_g_logits, True)
+    loss = loss + logs["l_gan_G"]
+    logs["p_fake_G"] = fake_g_logits.mean()
+
+    opt_g.zero_grad(set_to_none=True)
+    loss.backward()
+    for group in opt_g.param_groups:
+        group["lr"] = sched_g(step)
+    opt_g.step()
+
+    logs = {
+        "l_gan_D": l_gan_d,
+        # despite the p_ names these are mean raw logits, as the reference
+        # logs them (`vsrgan_model.py:194-195`)
+        "p_real_D": rl32.mean(),
+        "p_fake_D": fl32.mean(),
+        "distance": distance,
+        "n_upd_D": state["cnt_upd_d"],
+        **logs,
+    }
+    logs = {k: v.detach().float() for k, v in logs.items()}
+    for k in TECOGAN_LOG_KEYS:
+        logs.setdefault(k, torch.zeros((), dtype=torch.float32,
+                                       device=hr.device))
+    state["step"] = step + 1
+    state["running_log"] = _ema_update(state["running_log"], logs,
+                                       log_decay, step)
+    return state, logs
+
+
+def tecogan_init_state(net_g, net_d, opt_g, opt_d) -> dict:
+    """Training state: the fp32 nets and their optimizers, the host step
+    count, D's update count and the EMA log on the device."""
+    device = next(net_g.parameters()).device
+
+    def zero():
+        return torch.zeros((), dtype=torch.float32, device=device)
+
+    return {
+        "g": net_g,
+        "d": net_d,
+        "opt_g": opt_g,
+        "opt_d": opt_d,
+        "step": 0,
+        "cnt_upd_d": zero(),
+        "running_log": {k: zero() for k in TECOGAN_LOG_KEYS},
     }

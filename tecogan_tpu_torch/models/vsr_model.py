@@ -43,12 +43,16 @@ class VSRModel(BaseVSRModel):
             # the net stays fp32: its parameters are the master weights
             # that mixed precision casts to bf16 for each forward
             self.tcfg = make_train_config(opt)
-            opt_g, self.sched_g = make_adam(opt["train"]["generator"],
-                                            self.net_g.parameters())
-            self.state = frvsr_init_state(self.net_g, opt_g)
-            self._train_step = functools.partial(
-                frvsr_train_step, cfg_g=self.cfg_g, tcfg=self.tcfg,
-                sched_g=self.sched_g, log_decay=self.log_decay)
+            self._init_training(opt)
+
+    def _init_training(self, opt):
+        """The FRVSR step's optimizer, state and step function."""
+        opt_g, self.sched_g = make_adam(opt["train"]["generator"],
+                                        self.net_g.parameters())
+        self.state = frvsr_init_state(self.net_g, opt_g)
+        self._train_step = functools.partial(
+            frvsr_train_step, cfg_g=self.cfg_g, tcfg=self.tcfg,
+            sched_g=self.sched_g, log_decay=self.log_decay)
 
     def load_generator(self, load_path: str):
         """Swap in another generator checkpoint (``.npz`` or ``.pth``);

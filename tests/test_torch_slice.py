@@ -194,8 +194,8 @@ def test_vsr_model_infer_numerics(monkeypatch, rng, dtype):
 
 def test_port_imports_without_jax():
     """Every tecogan_tpu_torch module imports with jax, the JAX package,
-    cv2 and yaml blocked; a CPU infer_sequence and a CPU training step
-    launch no kernel."""
+    cv2 and yaml blocked; a CPU infer_sequence, a CPU FRVSR training step
+    and a CPU TecoGAN step launch no kernel."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "tecogan_tpu", "cv2", "yaml"):
@@ -236,6 +236,25 @@ def test_port_imports_without_jax():
         state, logs = steps.frvsr_train_step(state, {"gt": gt}, cfg_g=cfg,
                                              tcfg=tcfg, sched_g=sched)
         assert state["step"] == 1 and set(logs) == {"l_pix_G", "l_warp_G"}
+        assert (warp_rgb.launches, warp_dimage.launches,
+                warp_dflow.launches) == (0, 0, 0)
+        from tecogan_tpu_torch.models.networks import (VGG19, DTrunk,
+                                                       STNetConfig)
+        cfg_d = STNetConfig(spatial_size=32)
+        net_d = DTrunk.random(cfg_d, torch.Generator().manual_seed(1))
+        opt_d, sched_d = schedules.make_adam({"lr": 1e-4},
+                                             net_d.parameters())
+        state = steps.tecogan_init_state(net, net_d, opt, opt_d)
+        gan = tcfg._replace(
+            tempo_extent=2, crop_border_ratio=0.75,
+            feature_crit={"type": "CosineSimilarity"}, pingpong_crit=cb,
+            gan_crit={"type": "GAN", "weight": 0.01})
+        state, logs = steps.tecogan_train_step(
+            state, {"gt": gt}, cfg_g=cfg, cfg_d=cfg_d, tcfg=gan,
+            sched_g=sched, sched_d=sched_d,
+            vgg=VGG19.random(torch.Generator().manual_seed(2)))
+        assert set(logs) == set(steps.TECOGAN_LOG_KEYS)
+        assert all(bool(torch.isfinite(v)) for v in logs.values())
         assert (warp_rgb.launches, warp_dimage.launches,
                 warp_dflow.launches) == (0, 0, 0)
         print(len(mods), "modules")
