@@ -78,7 +78,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
    D's weights and Adam state bit-identical; ms/step (also with
    update_policy always, which reads nothing back), peak memory, a profile
    and a breakdown of one step; save and resume;
-13. one GAN step on the card against the CPU, fp32 and bf16.
+13. one GAN step on the card against the CPU, fp32 and bf16;
+14. train mode through the port's CLI (tecogan_tpu_torch.main, in process,
+   card 0), from a records store of 4 sequences x 30 frames at REDS's
+   frame geometry (720x1280) made from the seed and a 10-frame PNG
+   validation sequence: the shipped FRVSR REDS train.yml at full width
+   (nf=64, nb=10, batch 2 x 10 frames of 128^2, bf16, remat, 3 loader
+   workers) for 12 iterations (checkpoints at 5, 10 and 12, validation at
+   6 and 12, one JAX-format log line an iteration, the native assembler,
+   K2/K3+K4/K4 12 x the step's structure, K1 once per frame warped in the
+   validations), resumed to 15 (iterations 13-15 only), then a run with
+   nothing left; the loop's ms/iteration against model.train alone on the
+   same batches, the device idle share over 3 loop iterations, the host
+   loader's batches/s with the native and the numpy assembler; the
+   device-resident loader bit for bit the host loader's on the card (BD,
+   and BI from a paired store of 2 x 12 frames with imresize_matlab LR)
+   and its loop time; 3 iterations of the shipped BI FRVSR train.yml; 4
+   of the shipped TecoGAN REDS train.yml (D_iter4.npz, lr_D, K3 alone
+   once an iteration).
 
 Every kernel is timed beside its plain version, its device time (from
 torch.profiler), one PyTorch library call that computes the same function
@@ -122,6 +139,8 @@ BAND_GEOMETRIES = ((4, 4, 134, 320), (3, 2, 134, 320))
 # (streams, band, band_valid, width)
 BAND_STRADDLES = ((3, 34, 30, 100), (4, 3, 2, 40), (6, 1, 1, 40))
 FOLD_STREAMS = 4
+# K1's call in train mode's validation: one REDS HR frame (720x1280)
+VAL_SHAPE = (1, 3, 720, 1280)
 # card bf16 packed16 against the card bf16 default path (the JAX package's
 # band, tests/test_warp_pallas.py:121-122): the coordinates are f32 there
 # and bf16 here; folded against unfolded, per stream
@@ -350,6 +369,14 @@ def phase_k1(card):
         for layout in ("nchw", "chunk"):
             for sigma in (6.0, 30.0, 300.0):
                 cases.append(((1, 3, 576, 720), pd, pd, layout, sigma))
+    # train mode's validation call: a REDS frame (720x1280), the frame view
+    # of a chunk's HR flows and the NCHW layout, every dtype pairing; held
+    # bit for bit (VAL_SHAPE below)
+    for pd in dts:
+        for fd in dts:
+            for layout in ("nchw", "chunk"):
+                for sigma in (6.0, 30.0, 300.0):
+                    cases.append((VAL_SHAPE, pd, fd, layout, sigma))
     # planes and flow that start off a 16-byte boundary (one element in),
     # and ragged tiles: widths off the 64-column tile and the 32-lane warp,
     # heights off the 4-row tile
@@ -380,7 +407,10 @@ def phase_k1(card):
                  f"K1 output {got.dtype} {tuple(got.shape)}")
         err = float((got.float() - ref.float()).abs().max())
         max_err = max(max_err, err)
-        if pd == "f32":
+        if shape == VAL_SHAPE:
+            ok = torch.equal(got, ref)
+            detail = f"max_abs_err={err:.3g} (bit for bit required)"
+        elif pd == "f32":
             ok = torch.allclose(got, ref, rtol=K1_F32_TOL, atol=K1_F32_TOL)
             detail = f"max_abs_err={err:.3g}"
         else:
@@ -430,6 +460,22 @@ def phase_k1(card):
                               padding_mode="border", align_corners=True),
         _bound("K1", (tm_planes, tm_flow), (tm_out,), tm_out[:, 0].numel(),
                3))
+    # validation's call in train mode (bf16 planes, the bf16 chunk view of
+    # a smooth HR flow at 720x1280): timed and printed
+    vn, vc, vh, vw = VAL_SHAPE
+    v_planes = torch.randn(VAL_SHAPE, generator=gen, device=dev).bfloat16()
+    v_flow = torch.stack([_smooth_flow(gen, dev, vn, vh, vw, 6.0)] * 2,
+                         1).bfloat16()[:, 1].permute(0, 2, 3, 1)
+    v_grid = _grid(v_flow, v_planes.dtype)
+    v_out = warp_planes(v_planes, v_flow)
+    _time_kernel(
+        f"K1 time {VAL_SHAPE} bf16 planes+flow (train mode's validation, a "
+        f"chunk's frame view), smooth flow sigma 6", card,
+        lambda: warp_planes(v_planes, v_flow),
+        lambda: warp_planes_reference(v_planes, v_flow),
+        lambda: F.grid_sample(v_planes, v_grid, mode="bilinear",
+                              padding_mode="border", align_corners=True),
+        _bound("K1", (v_planes, v_flow), (v_out,), v_out[:, 0].numel(), vc))
     t["max_abs_err"] = max_err
     return t
 
@@ -1057,9 +1103,20 @@ DRIFT_T, DRIFT_LR, DRIFT_FLOOR, DRIFT_SLIDE = 96, (134, 320), 45.0, 6.0
 SHIPPED_TEST_YML = "experiments_BD/FRVSR/FRVSR_VimeoTecoGAN_4xSR_2GPU/test.yml"
 
 
+def _shipped(path):
+    """A YAML of the repo (a shipped experiment config), read by the port's
+    reader."""
+    from tecogan_tpu_torch.utils.yaml_subset import safe_load
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           path)) as f:
+        return safe_load(f.read())
+
+
 def _yaml_text(opt):
-    """A nested dict of scalars as block YAML that the port's reader reads
-    back to ``opt`` (the card has no PyYAML)."""
+    """A nested dict of scalars and lists of scalars as block YAML that the
+    port's reader reads back to ``opt`` (the port does not import
+    PyYAML)."""
     from tecogan_tpu_torch.utils.yaml_subset import safe_load
 
     def scalar(v):
@@ -1067,7 +1124,12 @@ def _yaml_text(opt):
             return "null"
         if isinstance(v, bool):
             return "true" if v else "false"
-        if isinstance(v, (int, float)):
+        if isinstance(v, float):
+            # YAML 1.1 reads 5e-05 as a string: the mantissa needs its dot
+            text = repr(v)
+            mant, e, exp = text.partition("e")
+            return f"{mant}.0e{exp}" if e and "." not in mant else text
+        if isinstance(v, int):
             return repr(v)
         return "'" + str(v).replace("'", "''") + "'"
 
@@ -1076,11 +1138,14 @@ def _yaml_text(opt):
             if isinstance(v, dict):
                 yield f"{' ' * indent}{k}:"
                 yield from lines(v, indent + 2)
+            elif isinstance(v, list):
+                yield f"{' ' * indent}{k}:"
+                yield from (f"{' ' * indent}- {scalar(x)}" for x in v)
             else:
                 yield f"{' ' * indent}{k}: {scalar(v)}"
 
     text = "\n".join(lines(opt, 0)) + "\n"
-    _require(safe_load(text) == opt, "test.yml does not read back")
+    _require(safe_load(text) == opt, "the YAML written does not read back")
     return text
 
 
@@ -1186,11 +1251,7 @@ def _png_read_times(tmp, frames, card):
 
 def _test_mode_opt(tmp, name, degradation, test_set, load_path, metric):
     """The shipped FRVSR test.yml with its paths replaced."""
-    from tecogan_tpu_torch.utils.yaml_subset import safe_load
-
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           SHIPPED_TEST_YML)) as f:
-        opt = safe_load(f.read())
+    opt = _shipped(SHIPPED_TEST_YML)
     exp = os.path.join(tmp, f"exp_{name}")
     opt["dataset"] = {"degradation": degradation,
                       "test1": {"name": "Vid4", **test_set,
@@ -1208,17 +1269,23 @@ def _test_mode_opt(tmp, name, degradation, test_set, load_path, metric):
     return exp, path, opt["test"]["num_pad_front"]
 
 
-class _Warnings:
-    """Collects the WARNING records of the port's 'base' logger."""
+class _LogLines:
+    """Collects the messages of the port's 'base' logger at ``level`` and
+    up."""
+
+    def __init__(self, level="INFO"):
+        self.level = level
 
     def __enter__(self):
         import logging
 
-        self.records = []
-        self.handler = logging.Handler(logging.WARNING)
-        self.handler.emit = self.records.append
-        logging.getLogger("base").addHandler(self.handler)
-        return self.records
+        from tecogan_tpu_torch.utils.logging_utils import setup_logger
+
+        self.lines = []
+        self.handler = logging.Handler(self.level)
+        self.handler.emit = lambda r: self.lines.append(r.getMessage())
+        setup_logger("base").addHandler(self.handler)
+        return self.lines
 
     def __exit__(self, *exc):
         import logging
@@ -1245,12 +1312,12 @@ def _cli(exp, yml, gpu_ids):
     """The port's CLI in process; returns (records, seconds, warnings)."""
     from tecogan_tpu_torch.main import main as cli_main
 
-    with _Warnings() as warns:
+    with _LogLines("WARNING") as warns:
         t0 = time.perf_counter()
         records = cli_main(["--exp_dir", exp, "--mode", "test", "--opt", yml,
                             "--gpu_ids", gpu_ids])
         secs = time.perf_counter() - t0
-    return records, secs, [w.getMessage() for w in warns]
+    return records, secs, list(warns)
 
 
 def _psnr_y(gt, sr):
@@ -2135,11 +2202,7 @@ def _gan_opt(ckpt_dir, g_path):
     ``--mode train --gpu_ids 0`` adds (is_train, device_ids [0]), and only
     the generator's weights, VGG19's gate and the checkpoint directory
     replaced."""
-    from tecogan_tpu_torch.utils.yaml_subset import safe_load
-
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           SHIPPED_GAN_TRAIN_YML)) as f:
-        opt = safe_load(f.read())
+    opt = _shipped(SHIPPED_GAN_TRAIN_YML)
     opt.update(is_train=True, device_ids=[0])
     opt["model"]["generator"]["load_path"] = g_path
     opt["train"]["feature_crit"]["allow_random_weights"] = True
@@ -2589,6 +2652,594 @@ def phase_gan_card_vs_cpu(sd, rng):
                  f"its band")
 
 
+# ------------------------------------------------------ train mode (CLI)
+
+SHIPPED_FRVSR_REDS_YML = "experiments_BD/FRVSR/FRVSR_REDS_4xSR_2GPU/train.yml"
+SHIPPED_GAN_REDS_YML = "experiments_BD/TecoGAN/TecoGAN_REDS_4xSR_2GPU/train.yml"
+SHIPPED_BI_TRAIN_YML = ("experiments_BI/FRVSR/FRVSR_VimeoTecoGAN_4xSR_2GPU/"
+                        "train.yml")
+# REDS's published frame geometry, cut from 240 sequences x 100 frames to
+# the first 4 names of data/meta/REDS/train_list.txt x 30 frames, and one
+# 10-frame validation sequence named as the first of the shipped
+# filter_list
+REDS_GT, REDS_FRAMES, REDS_VIDS = (720, 1280), 30, ("001", "002", "003",
+                                                     "004")
+REDS_VAL_VID, REDS_VAL_FRAMES = "000", 10
+BI_VIDS, BI_FRAMES = ("001", "002"), 12
+# the loop's cadence: 12 iterations, checkpoints at 5, 10 and 12,
+# validation at 6 and 12; then a resume to 15 and a run with nothing left
+LOOP_ITERS, LOOP_CKPT, LOOP_TEST, LOOP_RESUME = 12, 5, 6, 15
+# the loop's time in turns (TURNS: True for the device-resident loader),
+# three pairs of TURN_ITERS iterations each without checkpoints or
+# validation
+TURNS = (False, True, True, False, False, True)
+TURN_ITERS, PROFILE_ITERS, GAN_LOOP_ITERS = 40, 3, 4
+LOADER_BATCHES = 40
+RESIDENT_CHECK_BATCHES = 4
+CLI_GPU = "0"
+
+
+class _TrainProbe:
+    """Wraps ``VSRModel.train`` (VSRGANModel's too),
+    ``prepare_training_data`` and ``get_format_msg`` for one CLI run: the
+    host clock at each train call's entry, each call's (start, end), the
+    model, the host batches the loop copied (``keep``) and a torch.profiler
+    window over the loop iterations [profile_from, profile_from +
+    PROFILE_ITERS) of the run (1-based)."""
+
+    _WRAPPED = ("train", "prepare_training_data", "get_format_msg")
+
+    def __init__(self, keep=False, profile_from=None):
+        self.keep, self.profile_from = keep, profile_from
+        self.entries, self.model, self.host_batches = [], None, []
+        self.spans = {name: [] for name in self._WRAPPED}
+        self.prof, self.window = None, None
+
+    def _enter(self, model, batch):
+        import torch
+
+        self.model = model
+        k = len(self.entries) + 1
+        if self.profile_from is not None and k in (
+                self.profile_from, self.profile_from + PROFILE_ITERS):
+            torch.cuda.synchronize()
+            if k == self.profile_from:
+                from torch.profiler import ProfilerActivity, profile
+
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.start()
+                self.window = time.perf_counter()
+            else:
+                self.prof.stop()
+                self.window = time.perf_counter() - self.window
+        self.entries.append(time.perf_counter())
+
+    def _timed(self, name, orig):
+        def call(model, *args):
+            if name == "train":
+                self._enter(model, args[0])
+            elif name == "prepare_training_data" and self.keep:
+                self.host_batches.append(args[0])
+            t0 = time.perf_counter()
+            out = orig(model, *args)
+            self.spans[name].append((t0, time.perf_counter()))
+            return out
+
+        return call
+
+    def __enter__(self):
+        from tecogan_tpu_torch.models import base, vsr_model
+
+        self._saved = [(cls, name, getattr(cls, name)) for cls, name in (
+            (vsr_model.VSRModel, "train"),
+            (base.BaseVSRModel, "prepare_training_data"),
+            (base.BaseVSRModel, "get_format_msg"))]
+        for cls, name, orig in self._saved:
+            setattr(cls, name, self._timed(name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self._saved:
+            setattr(cls, name, orig)
+
+    def idle_share(self):
+        """(wall ms, kernel ms, device idle share) of the profiled window;
+        kernel ms and the share are None when no device time was
+        recorded."""
+        from torch.autograd import DeviceType
+
+        busy = sum(e.self_device_time_total
+                   for e in self.prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        wall = self.window * 1e3
+        return wall, busy or None, (1 - busy / wall) if busy else None
+
+
+def _train_log_lines(lines):
+    """The JAX format's per-iteration lines: [(epoch, iter, lr_G, lr_D or
+    None, {loss: value})]."""
+    import re
+
+    line = re.compile(r"^\[epoch: (\d+) \| iter: (\d+) \| lr_G: (\S+?)"
+                      r"(?: \| lr_D: (\S+?))?\] (.*)$")
+    out = []
+    for m in filter(None, map(line.match, lines)):
+        ep, it, lr_g, lr_d, rest = m.groups()
+        logs = {kv.split(": ")[0]: float(kv.split(": ")[1])
+                for kv in rest.split(", ")}
+        out.append((int(ep), int(it), float(lr_g),
+                    None if lr_d is None else float(lr_d), logs))
+    return out
+
+
+def _cli_train(exp, opt, probe=None):
+    """``tecogan_tpu_torch.main.main --mode train --gpu_ids 0`` in process
+    on ``opt`` written to ``exp/train.yml``. Returns (model, log lines,
+    launch counts, host seconds)."""
+    import torch
+
+    from tecogan_tpu_torch.main import main as cli_main
+
+    os.makedirs(exp, exist_ok=True)
+    yml = os.path.join(exp, "train.yml")
+    with open(yml, "w") as f:
+        f.write(_yaml_text(opt))
+    probe = probe or _TrainProbe()
+    _reset_counts()
+    with _LogLines() as lines, probe:
+        t0 = time.perf_counter()
+        model = cli_main(["--exp_dir", exp, "--mode", "train", "--opt", yml,
+                          "--gpu_ids", CLI_GPU])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return model, list(lines), _read_counts(), secs
+
+
+def _loop_ms(probe, start_iter, skip):
+    """Host-clock ms of each loop iteration (from one train call's entry to
+    the next's: the step, its log read, checkpoint or validation, the next
+    batch and its copy), leaving out the first iteration of the run and
+    the iterations in ``skip``."""
+    t = probe.entries
+    return {start_iter + k + 1: (t[k + 1] - t[k]) * 1e3
+            for k in range(1, len(t) - 1)
+            if start_iter + k + 1 not in skip}
+
+
+def _loop_parts(probe, iters):
+    """Median host ms of each part of the loop iterations ``iters`` (a log
+    line every iteration): the train call (the step's launches: it returns
+    before the card is done), the log line (its read of the running log
+    waits for the card), waiting for the next batch, and its copy to the
+    device (prepare_training_data)."""
+    tr, prep, log = (probe.spans[k] for k in _TrainProbe._WRAPPED)
+    parts = {"train call": [], "log read": [], "batch wait": [], "copy": [],
+             "rest": []}
+    for i in iters:
+        j = i - 1
+        total = tr[j + 1][0] - tr[j][0]
+        got = {"train call": tr[j][1] - tr[j][0],
+               "log read": log[j][1] - log[j][0],
+               "batch wait": prep[j + 1][0] - log[j][1],
+               "copy": prep[j + 1][1] - prep[j + 1][0]}
+        got["rest"] = total - sum(got.values())
+        for k, v in got.items():
+            parts[k].append(v * 1e3)
+    return ", ".join(f"{k} {float(np.median(v)):.2f}"
+                     for k, v in parts.items())
+
+
+def _alone(probe):
+    """The run's host batches copied to the card again, each copy timed
+    alone (``prepare_training_data``, synchronised), then ``model.train``
+    alone on them, one synchronised step each after a warm-up step.
+    Returns (copy ms, train ms) of the steps after the first."""
+    import torch
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    model = probe.model
+    copies = [timed(lambda b=b: model.prepare_training_data(b))
+              for b in probe.host_batches]
+    steps = [timed(lambda b=b: model.train(b))[1] for b, _ in copies]
+    return [ms for _, ms in copies[1:]], steps[1:]
+
+
+def _median_min(ms):
+    v = sorted(ms.values() if isinstance(ms, dict) else ms)
+    return f"median {float(np.median(v)):.2f}, min {v[0]:.2f}"
+
+
+def _require_counts(label, counts, per_iter, iters, k1=0):
+    """The run's launches equal ``iters`` times one iteration's structure
+    (per_iter: K2, K3+K4, K4 and K3 alone), plus ``k1`` K1 launches."""
+    expected = {**dict.fromkeys(counts, 0), "K1": k1,
+                "K2": iters * per_iter["K2"],
+                "K3": iters * (per_iter["K3+K4"] + per_iter["K3 alone"]),
+                "K3+K4": iters * per_iter["K3+K4"],
+                "K4": iters * per_iter["K4"]}
+    print(f"train mode {label}: launches {counts}, expected {expected}")
+    _require(counts == expected, f"train mode {label}: the launch counts "
+             f"differ from the structure")
+
+
+def _write_reds(tmp, rng):
+    """The records store (REDS's geometry) and the validation PNGs."""
+    from tecogan_tpu_torch.data.records import RecordWriter
+    from tecogan_tpu_torch.ops.color import float32_to_uint8
+
+    store = f"{tmp}/REDS/GT.lmdb"
+    w = RecordWriter(store)
+    for vid in REDS_VIDS:
+        w.add_sequence(vid, float32_to_uint8(
+            _smooth_frames(rng, REDS_FRAMES, *REDS_GT)))
+    w.close()
+    val = f"{tmp}/REDS/Raw"
+    _write_seq(f"{val}/{REDS_VAL_VID}", float32_to_uint8(
+        _smooth_frames(rng, REDS_VAL_FRAMES, *REDS_GT)))
+    return store, val
+
+
+def _write_bi(tmp, rng):
+    """A paired store: GT at REDS's geometry and its imresize_matlab 4x LR
+    (computed on the card)."""
+    import torch
+
+    from tecogan_tpu_torch.data.records import RecordWriter
+    from tecogan_tpu_torch.ops.color import float32_to_uint8
+    from tecogan_tpu_torch.ops.degrade import imresize_matlab
+
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    gt_w, lr_w = (RecordWriter(f"{tmp}/BI/GT.lmdb"),
+                  RecordWriter(f"{tmp}/BI/LR.lmdb"))
+    for vid in BI_VIDS:
+        gt = float32_to_uint8(_smooth_frames(rng, BI_FRAMES, *REDS_GT))
+        lr = imresize_matlab(torch.from_numpy(gt).to(dev, torch.float32)
+                             / 255.0, scale=1 / SCALE)
+        gt_w.add_sequence(vid, gt)
+        lr_w.add_sequence(vid, float32_to_uint8(lr.cpu().numpy()))
+    gt_w.close()
+    lr_w.close()
+    return f"{tmp}/BI/GT.lmdb", f"{tmp}/BI/LR.lmdb"
+
+
+def _frvsr_reds_opt(store, val, **cadence):
+    """The shipped FRVSR REDS train.yml with its data paths and the cadence
+    replaced."""
+    opt = _shipped(SHIPPED_FRVSR_REDS_YML)
+    opt["dataset"]["train"]["seq_dir"] = store
+    opt["dataset"]["test"]["gt_seq_dir"] = val
+    # the shipped width unless a rehearsal cuts it
+    opt["model"]["generator"].update(nf=NF, nb=NB)
+    for key, section in (("total_iter", "train"), ("log_freq", "logger"),
+                         ("ckpt_freq", "logger"), ("test_freq", "test")):
+        if key in cadence:
+            opt[section][key] = cadence[key]
+    return opt
+
+
+def _check_resident(label, opt, card):
+    """The device-resident loader's batches on the card, bit for bit the
+    host loader's: the first batches of epoch 0, and of epoch 1 entered at
+    batch 2."""
+    import itertools
+
+    import torch
+
+    from tecogan_tpu_torch.data import create_dataloader
+
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    host = create_dataloader(opt, "train", "train")
+    opt = {**opt, "dataset": {**opt["dataset"], "train": {
+        **opt["dataset"]["train"], "device_resident": True}}}
+    t0 = time.perf_counter()
+    resident = create_dataloader(opt, "train", "train", device=dev)
+    upload = time.perf_counter() - t0
+    n = 0
+    for epoch, start in ((0, 0), (1, 2)):
+        gen = host.epoch(epoch, start_batch=start)
+        want = list(itertools.islice(gen, RESIDENT_CHECK_BATCHES))
+        gen.close()
+        got = list(itertools.islice(resident.epoch(epoch, start_batch=start),
+                                    RESIDENT_CHECK_BATCHES))
+        _require(len(got) == len(want) == RESIDENT_CHECK_BATCHES,
+                 f"{label}: {len(got)} and {len(want)} batches")
+        for a, b in zip(got, want):
+            _require(set(a) == set(b), f"{label}: keys {set(a)} {set(b)}")
+            for k in a:
+                _require(a[k].device.type == dev.type
+                         and a[k].dtype == torch.uint8
+                         and np.array_equal(a[k].cpu().numpy(), b[k]),
+                         f"{label}: device-resident {k} differs from the "
+                         f"host loader's")
+                n += 1
+    corpus = sum(c.numel() for c in resident._clips.values())
+    print(f"device-resident loader {label}: {n} tensors of "
+          f"{2 * RESIDENT_CHECK_BATCHES} batches (epoch 0, and epoch 1 from "
+          f"batch 2) bit-identical to the host loader's on {dev}; corpus "
+          f"{corpus / 2 ** 20:.1f} MiB uploaded in {upload:.2f} s (host "
+          f"clock, reading the store included) on {card}")
+
+
+def _loader_rate(opt, assembler, card):
+    """Batches/s of the host loader alone (no training) over
+    LOADER_BATCHES batches after one, with the native or the numpy
+    assembler."""
+    import itertools
+
+    from tecogan_tpu_torch.data import create_dataloader
+
+    loader = create_dataloader(opt, "train", "train")
+    store = loader.dataset.store
+    if assembler == "numpy":
+        store._native_tried, store._native = True, None
+    _require(store.assembler == assembler, f"the {assembler} assembler is "
+             f"not in use: {store.assembler}")
+    gen = loader.epoch(0)
+    next(gen)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in itertools.islice(gen, LOADER_BATCHES))
+    secs = time.perf_counter() - t0
+    gen.close()
+    _require(n == LOADER_BATCHES, f"the loader gave {n} batches")
+    rate = n / secs
+    print(f"host loader alone, {assembler} assembler "
+          f"({loader.num_workers} workers, batch {loader.batch_size} x "
+          f"{loader.dataset.tempo_extent} frames of "
+          f"{loader.dataset.crop_size}^2 uint8 from {REDS_GT[0]}x"
+          f"{REDS_GT[1]}): {rate:.2f} batches/s over {n} batches (host "
+          f"clock) on {card}")
+    return rate
+
+
+def phase_train_mode(card):
+    """Train mode through the port's CLI (``tecogan_tpu_torch.main.main``,
+    in process, card 0) on the shipped REDS and BI train.ymls at full
+    width, from a records store at REDS's frame geometry: FRVSR's cadence
+    (logs, checkpoints, validation, resume, nothing left), the loop's
+    time against model.train alone, the device idle share, the host
+    loader's rate with either assembler, the device-resident loader (bit
+    for bit the host loader's, and its loop time), BI, and TecoGAN.
+    Returns the launches of the runs."""
+    import torch
+
+    from tecogan_tpu_torch.utils.ckpt import save_pytree
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    launches = dict.fromkeys(("K1", "K2", "K3", "K3+K4", "K4"), 0)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        store, val = _write_reds(tmp, rng)
+        size = os.path.getsize(f"{store}/data.bin")
+        print(f"train mode: records store of {len(REDS_VIDS)} x "
+              f"{REDS_FRAMES} frames of {REDS_GT[0]}x{REDS_GT[1]} "
+              f"({size / 1e6:.1f} MB) and {REDS_VAL_FRAMES} validation "
+              f"PNGs written in {time.perf_counter() - t0:.2f} s")
+
+        # FRVSR, 12 iterations
+        opt = _frvsr_reds_opt(store, val, total_iter=LOOP_ITERS, log_freq=1,
+                              ckpt_freq=LOOP_CKPT, test_freq=LOOP_TEST)
+        exp = f"{tmp}/exp_frvsr"
+        probe = _TrainProbe(keep=True)
+        model, lines, counts, secs = _cli_train(exp, opt, probe)
+        add(counts)
+        te = opt["train"]["tempo_extent"]
+        per_iter = _expected_launches(te, model.cfg_g.remat)
+        per_iter["K3 alone"] = per_iter["K3"] - per_iter["K3+K4"]
+        n_pad = opt["test"]["num_pad_front"]
+        validations = LOOP_ITERS // LOOP_TEST
+        k1 = validations * _frames_warped(REDS_VAL_FRAMES + n_pad, 16)
+        _require_counts("FRVSR", counts, per_iter, LOOP_ITERS, k1)
+        logs = _train_log_lines(lines)
+        _require([it for _, it, *_ in logs] == list(range(1, LOOP_ITERS + 1))
+                 and all(lr_d is None and lr_g > 0 and list(v) == [
+                     "l_pix_G", "l_warp_G"] and all(map(math.isfinite,
+                                                        v.values()))
+                         for _, _, lr_g, lr_d, v in logs),
+                 f"FRVSR: the log lines are not the JAX format's, one an "
+                 f"iteration: {logs}")
+        print(f"FRVSR log, iteration {LOOP_ITERS}: "
+              f"{[m for m in lines if m.startswith('[epoch')][-1]}")
+        ckpts = sorted(os.listdir(f"{exp}/train/ckpt"))
+        want = sorted([f"G_iter{i}.npz" for i in (5, 10, 12)]
+                      + [f"state_iter{i}.pth" for i in (5, 10, 12)])
+        _require(ckpts == want, f"FRVSR checkpoints {ckpts}, want {want}")
+        with open(f"{exp}/test/metrics/REDS_avg.json") as f:
+            metrics = json.load(f)
+        _require(list(metrics) == ["G_iter6", "G_iter12"]
+                 and all(math.isfinite(float(m["PSNR"]))
+                         for m in metrics.values()),
+                 f"FRVSR validation entries {metrics}")
+        native = [m for m in lines if "clips assembled by" in m]
+        _require(len(native) == 1 and "native assembler" in native[0],
+                 f"the native assembler is not in use: {native}")
+        print(f"FRVSR train mode: {LOOP_ITERS} iterations in {secs:.2f} s "
+              f"(host clock, model build and validations included); "
+              f"checkpoints {ckpts}; validation {metrics}; {native[0]}")
+
+        skip = {i for i in range(1, LOOP_ITERS + 1)
+                if i % LOOP_CKPT == 0 or i % LOOP_TEST == 0}
+        loop = _loop_ms(probe, 0, skip)
+        copy, alone = _alone(probe)
+        print(f"loop ms/iteration through the CLI (host clock, host loader, "
+              f"iterations {sorted(loop)}: not the first, nor those with a "
+              f"checkpoint or a validation): {_median_min(loop)}; "
+              f"model.train alone on the same {len(probe.host_batches)} batches "
+              f"(prepared before the clock, synchronised, after one warm-up "
+              f"step): {_median_min(alone)}; their copies alone "
+              f"{_median_min(copy)} on {card}")
+        print(f"loop parts, host loader (median ms over the same "
+              f"iterations): {_loop_parts(probe, sorted(loop))}")
+        del model, probe
+
+        # resume to 15, then a run with nothing left
+        for total, first in ((LOOP_RESUME, LOOP_ITERS + 1),
+                             (LOOP_RESUME, None)):
+            state_file = f"{exp}/train/ckpt/state_iter{LOOP_RESUME}.pth"
+            before = (os.path.getmtime(state_file)
+                      if os.path.exists(state_file) else None)
+            opt["train"]["total_iter"] = total
+            model, lines, counts, _ = _cli_train(exp, opt)
+            add(counts)
+            its = [it for _, it, *_ in _train_log_lines(lines)]
+            if first is not None:
+                _require(its == list(range(first, total + 1))
+                         and model.state["step"] == total
+                         and os.path.exists(
+                             f"{exp}/train/ckpt/G_iter{total}.npz"),
+                         f"the resumed run logged iterations {its}, step "
+                         f"{model.state['step']}")
+                _require_counts("FRVSR resumed", counts, per_iter,
+                                total - first + 1)
+                print(f"resume: iterations {its} trained from "
+                      f"state_iter{LOOP_ITERS}.pth; G_iter{total}.npz "
+                      f"written")
+            else:
+                _require(its == [] and model.state["step"] == total
+                         and os.path.getmtime(state_file) == before,
+                         f"a run with the budget spent trained {its}")
+                _require_counts("FRVSR, budget spent", counts, per_iter, 0)
+                print("a third run with total_iter spent trained no "
+                      "iteration and rewrote nothing")
+            del model
+
+        # the device idle share over 3 loop iterations (a fresh run,
+        # no checkpoint or validation)
+        probe = _TrainProbe(profile_from=2)
+        opt_p = _frvsr_reds_opt(store, val, total_iter=PROFILE_ITERS + 2,
+                                log_freq=1, ckpt_freq=0, test_freq=0)
+        model, _, counts, _ = _cli_train(f"{tmp}/exp_profile", opt_p, probe)
+        add(counts)
+        wall, busy, idle = probe.idle_share()
+        print(f"device idle share over {PROFILE_ITERS} loop iterations "
+              f"(2-{PROFILE_ITERS + 1}, host loader, under torch.profiler): "
+              f"wall {wall:.2f} ms, kernels {_ms(busy)} ms, idle "
+              + ("not measured" if idle is None else f"{idle:.3f}")
+              + f" on {card}")
+        if busy is not None:
+            # the profiler slows the host; against the unprofiled loop
+            median = float(np.median(list(loop.values())))
+            print(f"kernels per loop iteration {busy / PROFILE_ITERS:.2f} ms "
+                  f"against the unprofiled loop's median {median:.2f} ms: "
+                  f"device idle about "
+                  f"{1 - busy / PROFILE_ITERS / median:.3f} on {card}")
+        del model, probe
+
+        # the host loader alone, native then numpy assembler
+        rates = {a: _loader_rate(opt, a, card) for a in ("native", "numpy")}
+
+        # device-resident: batches bit for bit, then the loop's time in
+        # turns with the host loader's (and model.train alone)
+        _check_resident("BD", opt, card)
+        medians = {False: [], True: []}
+        for k, resident in enumerate(TURNS):
+            label = "device-resident" if resident else "host loader"
+            probe = _TrainProbe(keep=not resident)
+            opt_t = _frvsr_reds_opt(store, val, total_iter=TURN_ITERS,
+                                    log_freq=1, ckpt_freq=0, test_freq=0)
+            opt_t["dataset"]["train"]["device_resident"] = resident
+            model, lines, counts, _ = _cli_train(f"{tmp}/exp_turn{k}", opt_t,
+                                                 probe)
+            add(counts)
+            _require_counts(f"FRVSR turn {k}, {label}", counts, per_iter,
+                            TURN_ITERS)
+            _require(len(_train_log_lines(lines)) == TURN_ITERS,
+                     f"turn {k}: not one log line an iteration")
+            ms = _loop_ms(probe, 0, set())
+            medians[resident].append(float(np.median(list(ms.values()))))
+            print(f"turn {k}, {label}: loop ms/iteration (iterations "
+                  f"{sorted(ms)}) {_median_min(ms)}; parts (median ms) "
+                  f"{_loop_parts(probe, sorted(ms))} on {card}")
+            if not resident:
+                copy, alone = _alone(probe)
+                print(f"turn {k}, the same batches alone: model.train "
+                      f"{_median_min(alone)}, copies {_median_min(copy)}")
+            del model, probe
+        host, res = medians[False], medians[True]
+        pairs = [medians[True][i] / medians[False][i] for i in range(len(host))]
+        print(f"device-resident against host loader over {len(TURNS)} turns "
+              f"of {TURN_ITERS} iterations (medians, ms): host {host}, "
+              f"resident {res}; resident/host in each pair "
+              f"{[round(r, 4) for r in pairs]}, on the means "
+              f"{np.mean(res) / np.mean(host):.4f}; "
+              + ("resolved: every resident turn "
+                 + ("faster" if max(res) < min(host) else "slower")
+                 + " than every host turn"
+                 if max(res) < min(host) or min(res) > max(host)
+                 else "unresolved: the turns overlap") + f" on {card}")
+
+        # BI: the paired store, its batches on the card, 3 iterations
+        gt_dir, lr_dir = _write_bi(tmp, rng)
+        opt_bi = _shipped(SHIPPED_BI_TRAIN_YML)
+        opt_bi["dataset"]["train"].update(gt_seq_dir=gt_dir,
+                                          lr_seq_dir=lr_dir)
+        opt_bi["model"]["generator"].update(nf=NF, nb=NB)
+        opt_bi["train"]["total_iter"] = 3
+        opt_bi["logger"].update(log_freq=1, ckpt_freq=0)
+        opt_bi["test"]["test_freq"] = 0
+        _check_resident("BI", opt_bi, card)
+        model, lines, counts, _ = _cli_train(f"{tmp}/exp_bi", opt_bi)
+        add(counts)
+        logs = _train_log_lines(lines)
+        _require(len(logs) == 3 and all(
+            math.isfinite(v) for *_, d in logs for v in d.values()),
+            f"BI: {logs}")
+        print(f"BI train mode (the shipped BI FRVSR train.yml, GT "
+              f"{REDS_GT[0]}x{REDS_GT[1]}): 3 iterations, last log "
+              f"{[m for m in lines if m.startswith('[epoch')][-1]}")
+        del model
+
+        # TecoGAN, 4 iterations
+        g_path = f"{tmp}/G_seed.npz"
+        save_pytree(_jax_layout_params(rng, NF, NB, SCALE), g_path)
+        opt_g = _shipped(SHIPPED_GAN_REDS_YML)
+        opt_g["dataset"]["train"]["seq_dir"] = store
+        opt_g["dataset"]["test"]["gt_seq_dir"] = val
+        opt_g["model"]["generator"].update(nf=NF, nb=NB, load_path=g_path)
+        opt_g["train"]["feature_crit"]["allow_random_weights"] = True
+        opt_g["train"]["total_iter"] = GAN_LOOP_ITERS
+        opt_g["logger"].update(log_freq=1, ckpt_freq=GAN_LOOP_ITERS)
+        opt_g["test"]["test_freq"] = 0
+        exp = f"{tmp}/exp_gan"
+        model, lines, counts, secs = _cli_train(exp, opt_g)
+        add(counts)
+        gan_iter = _gan_expected_launches(
+            2 * opt_g["train"]["tempo_extent"] - 1, model.cfg_g.remat)
+        gan_iter["K3 alone"] = gan_iter["K3"] - gan_iter["K3+K4"]
+        _require_counts("TecoGAN", counts, gan_iter, GAN_LOOP_ITERS)
+        logs = _train_log_lines(lines)
+        _require(len(logs) == GAN_LOOP_ITERS and all(
+            lr_d is not None and math.isfinite(v)
+            for _, _, _, lr_d, d in logs for v in d.values()),
+            f"TecoGAN log lines {logs}")
+        ckpts = sorted(os.listdir(f"{exp}/train/ckpt"))
+        want = [f"D_iter{GAN_LOOP_ITERS}.npz", f"G_iter{GAN_LOOP_ITERS}.npz",
+                f"state_iter{GAN_LOOP_ITERS}.pth"]
+        _require(ckpts == want, f"TecoGAN checkpoints {ckpts}")
+        print(f"TecoGAN train mode (the shipped TecoGAN REDS train.yml): "
+              f"{GAN_LOOP_ITERS} iterations in {secs:.2f} s (host clock, "
+              f"model build included), checkpoints {ckpts}, last log "
+              f"{[m for m in lines if m.startswith('[epoch')][-1]}")
+        del model
+        torch.cuda.empty_cache()
+    print(f"train mode phase: {time.perf_counter() - t_phase:.1f} s wall "
+          f"(host clock), loader rates {rates}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2640,6 +3291,8 @@ def main() -> int:
     for key, count in phase_gan_train(rng, card).items():
         launches[key] += count
     phase_gan_card_vs_cpu(sd, rng)
+    for key, count in phase_train_mode(card).items():
+        launches[key] += count
 
     _require("jax" not in sys.modules and "yaml" not in sys.modules,
              "jax or yaml was imported")

@@ -1,0 +1,135 @@
+"""Training loader: epoch-shuffled, thread-prefetched host batching (copied
+from ``tecogan_tpu/data/loader.py`` lines 1-136).
+
+Replaces torch's DataLoader + DistributedSampler (`codes/data/__init__.py`)
+for one process on one device. Worker threads assemble clips ahead of the
+step (the native assembler releases the GIL inside ctypes); a bounded
+queue keeps a configurable number of ready batches.
+
+Determinism: sample i of epoch e uses np.random.Generator seeded with
+(seed, e, i): the stream is independent of worker count and scheduling.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+
+__all__ = ["TrainLoader"]
+
+
+class TrainLoader:
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 num_workers: int = 4, prefetch: int = 4, drop_last=True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def epoch(self, epoch_idx: int, start_batch: int = 0):
+        """Iterate batches for one epoch (dicts of stacked arrays).
+
+        ``start_batch`` skips the first batches of the epoch WITHOUT
+        assembling them (resume path): determinism is untouched because
+        each sample's RNG stream is keyed by (seed, epoch, dataset index),
+        not by batch position."""
+        n = len(self.dataset)
+        order = np.random.default_rng((self.seed, epoch_idx)).permutation(n)
+        n_batches = len(self)
+        batch_idx = [
+            order[i * self.batch_size:(i + 1) * self.batch_size]
+            for i in range(start_batch, n_batches)
+        ]
+
+        out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def sample(i):
+            rng = np.random.default_rng((self.seed, epoch_idx, int(i)))
+            return self.dataset[(int(i), rng)]
+
+        # clip datasets expose (sample_plan, assemble(out=), batch_spec):
+        # preallocate each batch and let every worker materialise its
+        # sample ONCE, straight into the batch slot (with the native
+        # assembler: one fused gather+crop+aug+dtype pass), instead of
+        # crop copy + aug copy + np.stack copy per sample
+        spec = (self.dataset.batch_spec()
+                if n_batches and hasattr(self.dataset, "batch_spec")
+                else None)
+
+        def make_batch(pool, idxs):
+            if spec is None:
+                samples = list(pool.map(sample, idxs))
+                return {
+                    k: np.stack([s[k] for s in samples])
+                    for k in samples[0]
+                }
+            batch = {k: np.empty((len(idxs),) + tuple(shape), dt)
+                     for k, (shape, dt) in spec.items()}
+
+            def one(j_i):
+                j, i = j_i
+                rng = np.random.default_rng((self.seed, epoch_idx, int(i)))
+                plan = self.dataset.sample_plan(int(i), rng)
+                self.dataset.assemble(
+                    plan, out={k: batch[k][j] for k in batch})
+
+            list(pool.map(one, enumerate(idxs)))  # list(): surface errors
+            return batch
+
+        def put_or_stop(item):
+            """Blocking put that still observes `stop`: the consumer may
+            exit mid-epoch (total_iter reached, exception) with the queue
+            full — a plain put would park this thread forever, leaking the
+            worker pool and the prefetched batches."""
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                from concurrent.futures import ThreadPoolExecutor
+
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for idxs in batch_idx:
+                        if stop.is_set():
+                            return
+                        if not put_or_stop(make_batch(pool, idxs)):
+                            return
+            except Exception as e:  # surface worker errors to the consumer
+                put_or_stop(e)
+            finally:
+                # The sentinel MUST be delivered: a full queue here just
+                # means the consumer hasn't drained the prefetched batches
+                # yet (the common case when the device step is slower than
+                # host assembly). put_or_stop waits for space and bails out
+                # only if the consumer has already set `stop`.
+                put_or_stop(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    def __iter__(self):
+        return self.epoch(0)

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code: the CUDA kernels and the host
+loader's C++ clip assembler.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``), all started together, and the objects are linked into one
@@ -7,6 +8,11 @@ library lands in ``build/kernels/`` beside the package, named by a hash of
 the sources, the headers and the flags, so a checkout builds it at first
 use and reuses it until a source changes. A missing ``nvcc`` or a failed
 build raises: nothing falls back to the plain PyTorch versions.
+
+The clip assembler (``native/tecoloader.cpp``, the JAX package's source,
+read and never written) is compiled by ``g++`` into ``build/native/``,
+named by the same kind of hash. Without a C++ compiler the loader takes its
+numpy path; a compiler that refuses the source raises.
 """
 
 from __future__ import annotations
@@ -21,16 +27,20 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "build", "load_library", "library_path"]
+__all__ = ["BuildError", "build", "load_library", "library_path",
+           "native_loader_path", "build_native_loader"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "tecoloader.cpp"
+NATIVE_BUILD_DIR = BUILD_DIR.parent / "native"
+NATIVE_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class BuildError(RuntimeError):
-    """nvcc is missing or refused the sources."""
+    """A compiler is missing or refused the sources."""
 
 
 def _sources() -> list[Path]:
@@ -40,13 +50,18 @@ def _sources() -> list[Path]:
     return srcs
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
+def _digest(flags, files) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libtecogan_kernels_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    srcs = sorted([*_sources(), *CSRC_DIR.glob("*.cuh")])
+    return BUILD_DIR / f"libtecogan_kernels_{_digest(NVCC_FLAGS, srcs)}.so"
 
 
 def _nvcc() -> str:
@@ -74,7 +89,8 @@ def _run_all(cmds: list[list[str]], logdir: str) -> str:
             text = log.read()
         out.append(text)
         if rc != 0:
-            failed.append(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+            failed.append(f"{os.path.basename(cmd[0])} failed ({rc}):\n"
+                          f"{' '.join(cmd)}\n{text}")
     if failed:
         raise BuildError("\n".join(failed))
     return "".join(out)
@@ -110,3 +126,27 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, then load the kernels' library (once per process)."""
     path, _, _ = build()
     return ctypes.CDLL(str(path))
+
+
+def native_loader_path(build_dir=None) -> Path:
+    """Where the clip assembler built from the current source lives."""
+    return (Path(build_dir or NATIVE_BUILD_DIR)
+            / f"libtecoloader_{_digest(NATIVE_FLAGS, [NATIVE_SRC])}.so")
+
+
+def build_native_loader(build_dir=None) -> Path | None:
+    """Compile ``native/tecoloader.cpp`` with g++ unless its library for
+    the current source exists. Returns its path, or None when there is no
+    g++; raises BuildError when g++ refuses the source."""
+    path = native_loader_path(build_dir)
+    if path.exists():
+        return path
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return None
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        lib = os.path.join(tmp, path.name)
+        _run_all([[cxx, *NATIVE_FLAGS, "-o", lib, str(NATIVE_SRC)]], tmp)
+        os.replace(lib, path)
+    return path

@@ -1,36 +1,51 @@
-"""Entry point, test mode (port of ``tecogan_tpu/main.py``)::
+"""Entry point, train and test modes (port of ``tecogan_tpu/main.py``)::
 
+    python -m tecogan_tpu_torch.main --exp_dir E --mode train --opt E/train.yml \
+        [--gpu_ids 0]
     python -m tecogan_tpu_torch.main --exp_dir E --mode test --opt E/test.yml \
         [--gpu_ids 0]
 
-It reads the experiment's YAML, reads every test set's PNG folders (BD
-test sets without an LR folder are degraded on the device), runs each
+Train mode trains FRVSR or TecoGAN from a records store (BD: GT only; BI:
+GT + LR) through the threaded host loader or, with ``device_resident:
+true``, the device-resident one; it logs every ``logger.log_freq``
+iterations, writes ``G_iter{N}.npz`` (TecoGAN also ``D_iter{N}.npz``) and
+``state_iter{N}.pth`` under ``train.ckpt_dir`` every ``logger.ckpt_freq``
+iterations and at the last, validates on the test sets every
+``test.test_freq``, resumes from the newest state file where the last run
+left the data stream, and saves the state when the loop fails between
+steps.
+
+Test mode reads the experiment's YAML, reads every test set's PNG folders
+(BD test sets without an LR folder are degraded on the device), runs each
 generator checkpoint named by ``model.generator.load_path`` (``*.npz``
 sweeps ``G_iter{N}``) over every sequence, writes the SR frames as PNGs
 under ``test.res_dir/<dataset>/<checkpoint>/<sequence>/`` and scores them
 (PSNR, SSIM, and tOF where cv2 is installed) into
 ``test.json_dir/<dataset>_avg.json`` or the log.
 
-It runs on ``cuda:0`` unless ``--gpu_ids -1`` asks for the CPU; without
-CUDA it raises. One process only. ``--mode train`` and ``--mode profile``
-are not ported yet and raise.
+Both run on ``cuda:0`` unless ``--gpu_ids -1`` asks for the CPU; without
+CUDA they raise. One process on one device only. ``--mode profile`` is not
+ported yet and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import math
 import os.path as osp
 import time
 
 import numpy as np
-import torch
 
-from .data import create_test_dataset
+from .data import create_dataloader, create_test_dataset
 from .metrics import create_metric_calculator
 from .models import define_model
 from .ops.color import save_sequence
 from .utils import config as config_utils
 from .utils import paths as path_utils
-from .utils.logging_utils import log_info, print_options, setup_logger
+from .utils.logging_utils import (log_info, log_warning, print_options,
+                                  setup_logger)
 
 
 def _run_test_sets(opt, model, model_idx):
@@ -99,6 +114,112 @@ def _run_test_sets(opt, model, model_idx):
     return records
 
 
+def _batches(loader, start_epoch, total_epoch, skip_in_epoch):
+    """(epoch, batch) from ``start_epoch`` on, the first epoch entered at
+    batch ``skip_in_epoch``: the skipped batches are not assembled, and
+    each sample's stream is keyed by (seed, epoch, dataset index), not by
+    its position, so a resumed run sees what a straight one would."""
+    for epoch in range(start_epoch, total_epoch):
+        batches = loader.epoch(
+            epoch, start_batch=skip_in_epoch if epoch == start_epoch else 0)
+        with contextlib.closing(batches):
+            for batch in batches:
+                yield epoch, batch
+
+
+def train(opt):
+    """The training loop of ``tecogan_tpu/main.py:108-217`` on one device.
+    Returns the model."""
+    log_info(f'{20 * "-"} Configurations {20 * "-"}')
+    print_options(opt)
+
+    model = define_model(opt)
+    train_loader = create_dataloader(opt, "train", "train",
+                                     device=model.device)
+
+    total_sample = len(train_loader.dataset)
+    iter_per_epoch = len(train_loader)
+    total_iter = opt["train"]["total_iter"]
+    total_epoch = int(math.ceil(total_iter / iter_per_epoch))
+    start_iter = opt["train"].get("start_iter", 0)
+    test_freq = opt["test"]["test_freq"]
+    log_freq = opt["logger"]["log_freq"]
+    ckpt_freq = opt["logger"]["ckpt_freq"]
+
+    log_info(f"Number of the training samples: {total_sample}")
+    log_info(f"{total_epoch} epochs needed for {total_iter} iterations")
+
+    # auto-resume if a state checkpoint exists
+    model.state, resumed = model.try_resume(model.state)
+    if resumed:
+        start_iter = int(model.state["step"])
+
+    # Resume continues the data stream where the checkpoint left off, not
+    # just the step counter: restarting at epoch 0 would replay the samples
+    # already consumed. Enter at the checkpoint's epoch and skip the
+    # batches it already trained on.
+    start_epoch = start_iter // iter_per_epoch
+    skip_in_epoch = start_iter % iter_per_epoch
+
+    # trained_iter: the last iteration whose step completed, the one an
+    # emergency save records; in_step: inside model.train, where a failure
+    # may leave some weights or Adam moments updated and others not
+    trained_iter, in_step = start_iter, False
+    # closing: leaving the loop early (the budget reached, an exception)
+    # stops the loader's producer thread at once
+    stream = _batches(train_loader, start_epoch, total_epoch, skip_in_epoch)
+    try:
+        with contextlib.closing(stream):
+            for epoch, batch in stream:
+                curr_iter = trained_iter + 1
+                # total_iter is the global budget: a resumed run finishes
+                # the remaining iterations instead of training total_iter
+                # more
+                if curr_iter > total_iter:
+                    return model
+
+                batch = model.prepare_training_data(batch)
+                in_step = True
+                model.train(batch)
+                in_step = False
+                trained_iter = curr_iter
+
+                if log_freq > 0 and curr_iter % log_freq == 0:
+                    log_info(model.get_format_msg(model.state, epoch,
+                                                  curr_iter))
+
+                # always checkpoint the final iteration even when
+                # ckpt_freq does not divide total_iter; ckpt_freq: 0 means
+                # no checkpoints at all
+                if ckpt_freq > 0 and (curr_iter == total_iter
+                                      or curr_iter % ckpt_freq == 0):
+                    model.save(curr_iter)
+                    model.save_training_state(model.state, curr_iter)
+
+                if test_freq > 0 and curr_iter % test_freq == 0:
+                    _run_test_sets(opt, model, f"G_iter{curr_iter}")
+    except BaseException:
+        # persist the full training state so auto-resume continues from
+        # here, unless the step itself failed: its in-place updates may be
+        # torn, so that state must not be resumed from
+        if in_step:
+            log_warning(
+                "Emergency save impossible: the failed training step may "
+                "have updated some weights or optimizer moments and not "
+                "others — resume from the last periodic checkpoint")
+        else:
+            try:
+                model.save_training_state(model.state, trained_iter)
+                log_warning(f"Emergency training state saved at iter "
+                            f"{trained_iter}")
+            except Exception:
+                logging.getLogger("base").exception(
+                    f"Emergency training-state save FAILED at iter "
+                    f"{trained_iter}: no state file was written for it")
+        raise
+    return model
+
+
 def test(opt):
     """Every checkpoint of the sweep over every test set; returns the
     per-sequence records of ``_run_test_sets``."""
@@ -127,21 +248,19 @@ def test(opt):
 
 
 def main(argv=None):
+    """Returns the trained model in train mode, test mode's per-sequence
+    records in test mode."""
     args = config_utils.parse_args(argv)
-    if args.mode == "train":
-        raise NotImplementedError(
-            "--mode train is not ported yet: main.py's training loop and "
-            "the data paths are ROADMAP Queue 1 item 4")
     if args.mode == "profile":
         raise NotImplementedError(
             "--mode profile is not ported yet (ROADMAP Queue 1 item 1)")
-    if args.mode != "test":
+    if args.mode not in ("train", "test"):
         raise ValueError(
             f"Unrecognized mode: {args.mode} (train|test|profile)")
     opt = config_utils.parse_configs(args)
     setup_logger("base")
     path_utils.setup_paths(opt, args.mode)
-    return test(opt)
+    return train(opt) if args.mode == "train" else test(opt)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ import torch
 
 from ..ops.degrade import downsample_bd
 from ..utils import ckpt as ckpt_io
+from ..utils.logging_utils import format_train_msg
 
 _log = logging.getLogger(__name__)
 
@@ -86,15 +87,19 @@ class BaseVSRModel:
             self.ckpt_dir = opt["train"]["ckpt_dir"]
 
     def prepare_training_data(self, batch) -> dict:
-        """Host batch {'gt': (n, t, H, W, c)[, 'lr']}, uint8 as the loader
-        ships it (or float) -> device tensors. To a card the arrays go
-        from pinned memory without blocking the host; normalisation happens
-        on the device, inside the step."""
+        """Batch {'gt': (n, t, H, W, c)[, 'lr']}, uint8 as the loaders ship
+        it (or float) -> tensors on the model's device. Tensors already
+        there (the device-resident loader's) pass through untouched; host
+        arrays go to a card from pinned memory without blocking the host.
+        Normalisation happens on the device, inside the step."""
         out = {}
         for k, v in batch.items():
-            t = torch.as_tensor(np.asarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
+            t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                np.asarray(v))
+            if t.device != self.device:
+                if self.device.type == "cuda" and t.device.type == "cpu":
+                    t = t.pin_memory()
+                t = t.to(self.device, non_blocking=True)
             out[k] = t
         return out
 
@@ -142,6 +147,16 @@ class BaseVSRModel:
     def get_running_log(self, state) -> dict:
         """The EMA log as host floats (one device read per key)."""
         return {k: float(v) for k, v in state["running_log"].items()}
+
+    def get_learning_rate(self) -> dict:
+        return {}
+
+    def get_format_msg(self, state, epoch, it) -> str:
+        """The JAX package's log line ``[epoch: E | iter: I | lr_G: x(|
+        lr_D: y)] l_pix_G: ...`` from ``state``'s running log and the lrs
+        the next update uses."""
+        return format_train_msg(epoch, it, self.get_learning_rate(),
+                                self.get_running_log(state))
 
     # ----------------------------------------------------------- checkpoints
     def save_pytree(self, tree, filename):

@@ -379,3 +379,108 @@ def test_test_mode_runs_without_jax_cv2_or_yaml(tmp_path):
     assert len(warnings) == 2, warnings
     assert "LPIPS disabled" in warnings[0]
     assert "tOF disabled" in warnings[1] and "cv2" in warnings[1]
+
+
+def test_train_mode_runs_without_jax_cv2_or_yaml(tmp_path):
+    """`python -m tecogan_tpu_torch.main --mode train --gpu_ids -1` with
+    jax, the JAX package, cv2 and yaml blocked: a records store written by
+    the port in, 2 logged iterations, a checkpoint and a validation entry
+    out."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "tecogan_tpu", "cv2", "yaml"):
+            sys.modules[name] = None
+        import json, logging, os
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)  # tiny steps; the suite runs in parallel
+        from tecogan_tpu_torch.data.records import RecordWriter
+        from tecogan_tpu_torch.main import main
+        from tecogan_tpu_torch.utils.logging_utils import setup_logger
+        from tecogan_tpu_torch.utils.png import write_png
+        root = {str(tmp_path)!r}
+        rng = np.random.default_rng(0)
+        w = RecordWriter(f"{{root}}/GT.rec")
+        for vid in ("v0", "v1"):
+            w.add_sequence(vid, (rng.random((3, 48, 48, 3)) * 255
+                                 ).astype(np.uint8))
+        w.close()
+        os.makedirs(f"{{root}}/Val/clip")
+        for i in range(3):
+            write_png(f"{{root}}/Val/clip/f{{i}}.png",
+                      (rng.random((32, 40, 3)) * 255).astype(np.uint8))
+        with open(f"{{root}}/train.yml", "w") as f:
+            f.write(f'''# train mode, written as text
+        scale: 4
+        manual_seed: 0
+        dataset:
+          degradation:
+            type: BD
+            sigma: 1.5
+          train:
+            name: Toy
+            seq_dir: {{root}}/GT.rec
+            crop_size: 32
+            batch_size_per_gpu: 2
+            num_worker_per_gpu: 2
+          test:
+            name: Val
+            gt_seq_dir: {{root}}/Val
+        model:
+          name: FRVSR
+          generator:
+            name: FRNet
+            in_nc: 3
+            out_nc: 3
+            nf: 8
+            nb: 2
+        train:
+          tempo_extent: 3
+          total_iter: 2
+          moving_first_frame: true
+          moving_factor: 0.7
+          generator:
+            lr: 1.0e-4
+          pixel_crit:
+            type: CB
+            weight: 1
+            reduction: mean
+          warping_crit:
+            type: CB
+            weight: 1
+            reduction: mean
+        test:
+          test_freq: 2
+          save_res: false
+          save_json: true
+          padding_mode: reflect
+          num_pad_front: 1
+        metric:
+          PSNR:
+            colorspace: y
+        logger:
+          log_freq: 1
+          decay: 0.99
+          ckpt_freq: 2
+        ''')
+        lines = []
+        handler = logging.Handler()
+        handler.emit = lambda r: lines.append(r.getMessage())
+        setup_logger("base").addHandler(handler)
+        model = main(["--exp_dir", f"{{root}}/exp", "--mode", "train",
+                      "--opt", f"{{root}}/train.yml", "--gpu_ids", "-1"])
+        assert model.state["step"] == 2
+        logged = [m for m in lines if m.startswith("[epoch: 0 | iter: ")]
+        assert len(logged) == 2 and "lr_G: 1.00e-04] l_pix_G: " in logged[1]
+        assert sorted(os.listdir(f"{{root}}/exp/train/ckpt")) == [
+            "G_iter2.npz", "state_iter2.pth"]
+        with open(f"{{root}}/exp/test/metrics/Val_avg.json") as f:
+            assert list(json.load(f)) == ["G_iter2"]
+        for name in ("jax", "tecogan_tpu", "cv2", "yaml"):
+            assert sys.modules[name] is None, name
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["ok"]
