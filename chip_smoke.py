@@ -96,6 +96,29 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and its loop time; 3 iterations of the shipped BI FRVSR train.yml; 4
    of the shipped TecoGAN REDS train.yml (D_iter4.npz, lr_D, K3 alone
    once an iteration).
+15. serving: three artifacts of the flagship generator (bf16, fp32, bf16
+   packed16; 1 x 64 frames of 134x320, chunk 16, bench.py's geometry)
+   exported by tools/export_serving.py and reloaded by
+   serving.load_artifact, each bit-identical to infer_sequence_batch, K1
+   (K5 for packed16) once per warped frame and no other kernel, with the
+   export and load seconds and the files' bytes; serve.main in process on
+   2 PNG sequences of 40 frames (plain, with --pad_front 5, with a --ckpt
+   override), every PNG equal to the live frames, and a 50-frame sequence
+   refused by a 48-frame artifact; the loaded bf16 program's FPS against
+   the live path in turns at bench.py's protocol, a profile of each, and
+   K1's host cost through its operator against a direct launch;
+16. profile mode through the CLI in process on the shipped FRVSR Vimeo
+   train.yml at 3x134x320 with --test_speed: 94.438 analytic GFLOPs
+   (FNet 10.511, SRNet 83.927; 2589093 parameters), the FlopCounterMode
+   count, the FPS, K1 once per step; with TECOGAN_TRACE_DIR, a chrome
+   trace holding K1's events;
+17. LPIPS with weights made from the seed: the card against the CPU on
+   576x720 pairs (AlexNet distance and spatial map, VGG16, SqueezeNet),
+   rtol 1e-4; test mode through the CLI with LPIPS in the metric stack
+   (phase 5's BD set), against a CPU recomputation from the PNGs; the
+   official harness (official_metrics.evaluate) on those PNGs with LPIPS
+   and tLP100, its LPIPS column equal to the metric calculator's; host
+   and device seconds a frame of LPIPS beside PSNR's and SSIM's.
 
 Every kernel is timed beside its plain version, its device time (from
 torch.profiler), one PyTorch library call that computes the same function
@@ -939,7 +962,8 @@ def phase_k234(card):
             print(f"{name}'s device work over 20 calls at {shape} "
                   f"(profiler, launches by kernel): {names}")
             _require(len(names) == 1 and kernel in next(iter(names)),
-                     f"{name} is not one kernel launch a call")
+                     f"{name} is not one kernel launch a call at {shape}: "
+                     f"the profiler saw {names}")
     return out
 
 
@@ -1022,22 +1046,30 @@ def _k3_edge_cases(gen, dev):
           "and NaN); K4 alone likewise")
 
 
-def _kernel_names(fn, iters=20):
+def _kernel_names(fn, iters=20, tries=3):
     """{device kernel name: launches} over ``iters`` calls of ``fn``, from
-    torch.profiler (which may drop a launch, never add one)."""
+    torch.profiler (which may drop a launch, never add one). The profiler
+    now and then records no device event at all (as ``_device_ms`` finds):
+    then it profiles again, ``tries`` times in all, and gives {}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count}
+        if names:
+            return names
+        print(f"profiler: no device event in {iters} calls "
+              f"(try {attempt + 1} of {tries})")
+    return {}
 
 
 def _test_opt(load_path):
@@ -3240,6 +3272,491 @@ def phase_train_mode(card):
     return launches
 
 
+# ------------------------------------------------------------- serving
+
+# bench.py's geometry: one stream of 64 LR frames of 134x320, chunk 16
+SERVE_T, SERVE_LR, SERVE_CHUNK = 64, (134, 320), 16
+# serve.main's artifact and sequences: 40 frames with 5 of pre-roll fit
+# its 48, a 50-frame sequence does not
+SERVE_ART_T, SERVE_SEQ_T, SERVE_PAD, SERVE_LONG_T = 48, 40, 5, 50
+SHIPPED_FRVSR_VIMEO_YML = ("experiments_BD/FRVSR/FRVSR_VimeoTecoGAN_4xSR_2GPU/"
+                           "train.yml")
+
+
+def _export(ckpt, out, t, dtype, *extra):
+    """tools/export_serving.py in process; returns (seconds, blob bytes,
+    file bytes)."""
+    from tecogan_tpu_torch.tools import export_serving
+
+    h, w = SERVE_LR
+    t0 = time.perf_counter()
+    blob, _ = export_serving.main([
+        "--ckpt", ckpt, "--out", out, "--height", str(h), "--width", str(w),
+        "--frames", str(t), "--chunk", str(SERVE_CHUNK), "--nf", str(NF),
+        "--nb", str(NB), "--scale", str(SCALE), "--compute_dtype", dtype,
+        *extra])
+    return time.perf_counter() - t0, len(blob), os.path.getsize(out)
+
+
+def _live(sd, cfg, x):
+    """infer_sequence_batch on the card, the live path a program must
+    equal, under the numerics a loaded program runs with."""
+    from tecogan_tpu_torch.models.networks import FRNet, infer_sequence_batch
+    from tecogan_tpu_torch.nn import inference_numerics
+
+    net = FRNet.from_state_dict(cfg, sd, device="cuda")
+    with inference_numerics(cfg.compute_dtype):
+        return infer_sequence_batch(net, x, cfg, chunk=SERVE_CHUNK)
+
+
+def _in_turns(fns, label, card):
+    """bench.py's protocol for each of ``fns`` (label -> a call returning a
+    uint8 tensor): one warm-up each, then five rounds in turns (the order
+    reversed every other round), a checksum read back to force the sync;
+    frames/s from the min of 5."""
+    import torch
+
+    for fn in fns.values():
+        int(fn().sum(dtype=torch.int64).item())
+    times = {k: [] for k in fns}
+    order = list(fns)
+    for rep in range(5):
+        for k in (order if rep % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            int(fns[k]().sum(dtype=torch.int64).item())
+            times[k].append(time.perf_counter() - t0)
+    fps = {}
+    for k, ts in times.items():
+        fps[k] = SERVE_T / min(ts)
+        print(f"FPS ({k}) {label}: {fps[k]:.2f} frames/s (min of 5: "
+              f"{min(ts) * 1e3:.1f} ms; all {[round(t * 1e3, 1) for t in ts]})"
+              f" on {card}")
+    return fps
+
+
+def _host_us(fn, n=300):
+    """Host microseconds a call of ``fn`` takes to enqueue its work (the
+    card then drains the queue)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _k1_operator_cost(card):
+    """K1 at the serving path's (1,3,536,1280) bf16, the flow the NHWC view
+    of an NCHW bf16 flow: host µs a call through the operator
+    (``warp_planes``) against a direct call of its CUDA implementation,
+    in turns; and the two outputs bit for bit."""
+    import torch
+
+    from tecogan_tpu_torch.ops import warp_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    planes = torch.rand((1, 3, 536, 1280), generator=gen, device="cuda",
+                        dtype=torch.float32).bfloat16()
+    flow = _smooth_flow(gen, "cuda", 1, 536, 1280, 4.0).bfloat16().permute(
+        0, 2, 3, 1)
+    op = lambda: warp_cuda.warp_planes(planes, flow)  # noqa: E731
+    direct = lambda: warp_cuda._warp_planes_cuda(planes, flow)  # noqa: E731
+    _require(torch.equal(op(), direct()), "K1 through the operator differs "
+             "from its direct launch")
+    host = {"operator": [], "direct": []}
+    for _ in range(3):
+        for k, fn in (("operator", op), ("direct", direct),
+                      ("direct", direct), ("operator", op)):
+            host[k].append(_host_us(fn))
+    events = {"operator": _cuda_ms(op, 200) * 1e3,
+              "direct": _cuda_ms(direct, 200) * 1e3}
+    print(f"K1 (1,3,536,1280) bf16, host us a call to enqueue (min of 6, in "
+          f"turns): operator {min(host['operator']):.2f} (all "
+          f"{[round(x, 2) for x in host['operator']]}), direct "
+          f"{min(host['direct']):.2f} (all "
+          f"{[round(x, 2) for x in host['direct']]}); CUDA events us a call "
+          f"over 200: operator {events['operator']:.2f}, direct "
+          f"{events['direct']:.2f} on {card}")
+    return {k: min(v) for k, v in host.items()}
+
+
+def phase_serving(card, params):
+    """Phase 15: three artifacts of the flagship generator (bf16, fp32, bf16
+    packed16; 1 x 64 frames of 134x320, chunk 16) exported by
+    tools/export_serving.py and loaded by serving.load_artifact: each
+    bit-identical to the live path, K1 (K5) once per warped frame and no
+    other kernel; serve.main on PNG sequences (plain, with pre-roll, with a
+    --ckpt override; a too-long sequence refused), every PNG equal to the
+    live frames; the loaded bf16 program's FPS against the live path in
+    turns, a profile of each, and K1's operator cost. Returns the K1 and K5
+    launches of the loaded programs and of serve."""
+    import torch
+
+    from tecogan_tpu_torch import serve, serving
+    from tecogan_tpu_torch.models.networks import FRNetConfig
+    from tecogan_tpu_torch.ops.color import float32_to_uint8
+    from tecogan_tpu_torch.utils.ckpt import save_pytree
+    from tecogan_tpu_torch.utils.layout import state_dict_from_jax
+    from tecogan_tpu_torch.utils.png import read_png
+
+    rng = np.random.default_rng(SEED + 15)
+    h, w = SERVE_LR
+    sd = state_dict_from_jax(params)
+    x = torch.from_numpy(_smooth_frames(rng, SERVE_T, h, w))[None].cuda()
+    launches = {"K1": 0, "K5": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/G.npz"
+        save_pytree(params, ckpt)
+        loaded = {}
+        for label, dtype, extra in (("bf16", "bfloat16", ()),
+                                    ("fp32", "float32", ()),
+                                    ("bf16 packed16", "bfloat16",
+                                     ("--packed16",))):
+            path = f"{tmp}/{label.replace(' ', '_')}.tecosrv"
+            export_s, blob_b, file_b = _export(ckpt, path, SERVE_T, dtype,
+                                               *extra)
+            t0 = time.perf_counter()
+            run, meta, back = serving.load_artifact(path)
+            load_s = time.perf_counter() - t0
+            _require(set(back) == set(sd) and all(
+                torch.equal(back[k], sd[k]) for k in sd),
+                f"{label}: the embedded weights differ from the checkpoint's")
+            cfg = FRNetConfig(nf=NF, nb=NB, scale=SCALE, compute_dtype=dtype,
+                              packed16=bool(extra))
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run(back, x)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts = _read_counts()
+            kernel = "K5" if extra else "K1"
+            _require(counts == {**dict.fromkeys(counts, 0), kernel: SERVE_T},
+                     f"{label} artifact: launches {counts}, expected "
+                     f"{kernel} once per warped frame ({SERVE_T}) and no "
+                     f"other kernel")
+            launches[kernel] += counts[kernel]
+            want = _live(sd, cfg, x)
+            _require(got.shape == (1, SERVE_T, 4 * h, 4 * w, 3)
+                     and torch.equal(got, want),
+                     f"{label} artifact differs from infer_sequence_batch")
+            print(f"serving artifact {label} (1x{SERVE_T}x{h}x{w}, chunk "
+                  f"{SERVE_CHUNK}): export {export_s:.2f} s, program "
+                  f"{blob_b} bytes, file {file_b} bytes (weights embedded), "
+                  f"load {load_s:.2f} s, first call {first_s:.2f} s (host "
+                  f"clock); bit-identical to the live path; launches "
+                  f"{counts} on {card}")
+            loaded[label] = (run, back, cfg)
+
+        # serve.main on PNG sequences
+        art = f"{tmp}/serve.tecosrv"
+        _export(ckpt, art, SERVE_ART_T, "bfloat16")
+        other = f"{tmp}/G_other.npz"
+        params_b = _jax_layout_params(rng, NF, NB, SCALE)
+        save_pytree(params_b, other)
+        seqs = {}
+        for name in ("s0", "s1"):
+            seqs[name] = float32_to_uint8(_smooth_frames(rng, SERVE_SEQ_T,
+                                                         h, w))
+            _write_seq(f"{tmp}/in/{name}", seqs[name])
+        cfg = loaded["bf16"][2]
+        for run_i, (label, weights, args) in enumerate((
+                ("plain", sd, []),
+                (f"--pad_front {SERVE_PAD}", sd, ["--pad_front",
+                                                  str(SERVE_PAD)]),
+                ("--ckpt override", state_dict_from_jax(params_b),
+                 ["--ckpt", other]))):
+            out = f"{tmp}/out{run_i}"
+            _reset_counts()
+            t0 = time.perf_counter()
+            written = serve.main([art, f"{tmp}/in", out, "--quiet", *args])
+            secs = time.perf_counter() - t0
+            counts = _read_counts()
+            _require(written == {k: SERVE_SEQ_T for k in seqs}
+                     and counts == {**dict.fromkeys(counts, 0),
+                                    "K1": SERVE_ART_T * len(seqs)},
+                     f"serve ({label}): wrote {written}, launches {counts}")
+            launches["K1"] += counts["K1"]
+            pad = SERVE_PAD if "pad_front" in label else 0
+            for name, frames in seqs.items():
+                lr = frames.astype(np.float32) / 255.0
+                lr = np.concatenate([lr[1:1 + pad][::-1], lr])
+                lr = np.concatenate(
+                    [lr, np.repeat(lr[-1:], SERVE_ART_T - len(lr), 0)])
+                want = _live(weights, cfg, torch.from_numpy(lr)[None].cuda())
+                want = want[0, pad:pad + SERVE_SEQ_T].cpu().numpy()
+                got = np.stack([read_png(f"{out}/{name}/{i:04d}.png")
+                                for i in range(SERVE_SEQ_T)])
+                _require(np.array_equal(got, want),
+                         f"serve ({label}) {name}: PNGs differ from the live "
+                         f"frames")
+            print(f"serve ({label}): {len(seqs)} x {SERVE_SEQ_T} PNG frames "
+                  f"of {h}x{w} in {secs:.2f} s (host clock, PNG I/O "
+                  f"included), every PNG equal to the live frames; K1 "
+                  f"{counts['K1']} on {card}")
+        _write_seq(f"{tmp}/long/s2", float32_to_uint8(
+            _smooth_frames(rng, SERVE_LONG_T, h, w)))
+        try:
+            serve.main([art, f"{tmp}/long", f"{tmp}/out_long", "--quiet"])
+        except ValueError as e:
+            _require("exceeds the artifact's fixed t" in str(e), str(e))
+            print(f"serve: a {SERVE_LONG_T}-frame sequence refused by the "
+                  f"{SERVE_ART_T}-frame artifact: {e}")
+        else:
+            raise RuntimeError("serve accepted a sequence longer than t")
+
+    run, back, cfg = loaded["bf16"]
+    from tecogan_tpu_torch.models.networks import (FRNet,
+                                                   infer_sequence_batch)
+
+    net = FRNet.from_state_dict(cfg, sd, device="cuda")
+    fns = {"loaded bf16 artifact": lambda: run(back, x),
+           "live infer_sequence_batch": lambda: infer_sequence_batch(
+               net, x, cfg, chunk=SERVE_CHUNK)}
+    fps = _in_turns(fns, f"1x{SERVE_T}x{h}x{w} 4x BD nf={NF} nb={NB} bf16 "
+                    f"chunk={SERVE_CHUNK}", card)
+    for k, fn in fns.items():
+        _profile(fn, f"{k}, {SERVE_T} frames", card, ("warp_planes_kernel",))
+    _k1_operator_cost(card)
+    return launches, fps
+
+
+def phase_profile_mode(card):
+    """Phase 16: ``--mode profile --test_speed`` through the CLI in process
+    on the shipped FRVSR Vimeo train.yml at 3x134x320, card 0: the analytic
+    FLOPs and parameters of the JAX package's profile_frnet, the
+    FlopCounterMode count, the FPS, K1 once per step (30 timed and the
+    counted warm-up); then again with TECOGAN_TRACE_DIR, which must write
+    a chrome trace. Returns K1's launches."""
+    from tecogan_tpu_torch.main import main as cli_main
+
+    yml = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       SHIPPED_FRVSR_VIMEO_YML)
+    argv = ["--mode", "profile", "--opt", yml, "--gpu_ids", "0", "--lr_size",
+            "3x134x320", "--test_speed"]
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        with _LogLines() as lines:
+            out = cli_main(["--exp_dir", tmp, *argv])
+        counts = _read_counts()
+        report = [ln for ln in "\n".join(lines).splitlines()
+                  if ln.strip().startswith(("Resolution", "Module", "FLOPs",
+                                            "Parameters", "Overall",
+                                            "FlopCounterMode", "Speed"))]
+        print("profile mode (the CLI's report):\n  " + "\n  ".join(report))
+        _require(round(out["gflops"], 3) == 94.438
+                 and out["params"] == 1745506 + 843587,
+                 f"profile mode: {out['gflops']} GFLOPs, {out['params']} "
+                 f"parameters; expected 94.438 and 2589093")
+        _require(counts == {**dict.fromkeys(counts, 0), "K1": 31},
+                 f"profile mode launches {counts}: expected K1 once per step "
+                 f"(30 timed and the warm-up) and no other kernel")
+        print(f"profile mode on {card}: analytic {out['gflops']:.3f} GFLOPs, "
+              f"FlopCounterMode {out['counted_gflops']:.3f}, "
+              f"{out['fps']:.2f} FPS (FRNet.step, fp32 with cuDNN's TF32 "
+              f"default), K1 {counts['K1']}")
+        os.environ["TECOGAN_TRACE_DIR"] = f"{tmp}/trace"
+        try:
+            traced = cli_main(["--exp_dir", tmp, *argv])
+        finally:
+            del os.environ["TECOGAN_TRACE_DIR"]
+        trace = f"{tmp}/trace/profile_trace.json"
+        with open(trace) as f:
+            text = f.read()
+        _require("warp_planes_kernel" in text,
+                 "the profile trace holds no K1 kernel event")
+        print(f"profile mode with TECOGAN_TRACE_DIR: a {len(text)}-byte "
+              f"chrome trace with K1's kernel events; {traced['fps']:.2f} FPS "
+              f"under the profiler")
+    return counts["K1"]
+
+
+def _lpips_weights(root, rng):
+    """Backbones in torchvision's format (the port's trunks at torch's
+    default initialisation from the seed) and v0.1 heads, as .pth files
+    under root/pretrained_models/lpips, where LPIPS looks for them."""
+    import torch
+
+    from tecogan_tpu_torch.metrics import lpips
+
+    d = os.path.join(root, "pretrained_models", "lpips")
+    os.makedirs(d)
+    for net, trunk in lpips._TRUNKS.items():
+        bb_stem, lin_stem = lpips._NET_FILES[net]
+        torch.manual_seed(SEED)
+        torch.save(trunk().state_dict(), f"{d}/{bb_stem}.pth")
+        torch.save({f"lin{i}.model.1.weight": torch.from_numpy(
+            rng.random((1, c, 1, 1), dtype=np.float32) * 0.1)
+            for i, c in enumerate(lpips._NET_CHANS[net])},
+            f"{d}/{lin_stem}.pth")
+    return d
+
+
+def phase_lpips(card):
+    """Phase 17: LPIPS with weights made from the seed (.pth): the card
+    against the CPU on 576x720 pairs for the AlexNet, VGG16 and SqueezeNet
+    trunks (the AlexNet spatial map too), rtol 1e-4 in fp32 with TF32 off;
+    test mode through the CLI with LPIPS in the metric stack (a BD set of
+    2 x 12 frames of 576x720, as phase 5's), its LPIPS against a CPU
+    recomputation from the PNGs; the official harness on those PNGs with
+    LPIPS and tLP100, its LPIPS column against the metric calculator's;
+    host and device seconds a frame of LPIPS beside PSNR's and SSIM's.
+    Returns K1's launches in the CLI run."""
+    import json as _json
+
+    import torch
+
+    from tecogan_tpu_torch.metrics.lpips import _NET_FILES, LPIPS
+    from tecogan_tpu_torch.metrics.metric_calculator import MetricCalculator
+    from tecogan_tpu_torch.official_metrics import evaluate
+    from tecogan_tpu_torch.official_metrics.metrics import crop_32
+    from tecogan_tpu_torch.ops.color import float32_to_uint8
+    from tecogan_tpu_torch.utils.ckpt import save_pytree
+    from tecogan_tpu_torch.utils.png import read_png
+
+    rng = np.random.default_rng(SEED + 17)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = _lpips_weights(tmp, rng)
+        gt = float32_to_uint8(_smooth_frames(rng, 2, *TM_GT))
+        sr = np.clip(gt + rng.normal(0, 12.0, gt.shape), 0, 255).astype(
+            np.uint8)
+        for net, pairs, spatial in (("alex", 2, False), ("alex", 2, True),
+                                    ("vgg", 1, False),
+                                    ("squeeze", 1, False)):
+            paths = [f"{d}/{stem}.pth" for stem in _NET_FILES[net]]
+            on_card = LPIPS(net, *paths, spatial=spatial, device="cuda")
+            on_cpu = LPIPS(net, *paths, spatial=spatial, device="cpu")
+            a, b = on_card(gt[:pairs], sr[:pairs]), on_cpu(gt[:pairs],
+                                                           sr[:pairs])
+            err = float(np.max(np.abs(a - b) / np.abs(b).max()))
+            ok = np.allclose(a, b, rtol=1e-4, atol=1e-6 * np.abs(b).max())
+            print(f"LPIPS {net}{' spatial' if spatial else ''} card vs CPU "
+                  f"on {pairs} pair(s) of {TM_GT[0]}x{TM_GT[1]}: "
+                  f"{np.round(a.reshape(pairs, -1)[:, 0], 6).tolist()} vs "
+                  f"{np.round(b.reshape(pairs, -1)[:, 0], 6).tolist()}, "
+                  f"max diff / max {err:.2e} (rtol 1e-4, atol 1e-6 x max): "
+                  f"{'ok' if ok else 'FAIL'}")
+            _require(ok and a.shape == b.shape, f"LPIPS {net} card vs CPU")
+
+        # test mode with LPIPS in the metric stack, then the official
+        # harness on its PNGs; cwd is the experiment, where both look for
+        # pretrained_models/lpips, data/Vid4/GT and results/Vid4
+        exp, yml, n_pad = _test_mode_opt(
+            tmp, "lpips", {"type": "BD", "sigma": 1.5},
+            {"gt_seq_dir": f"{tmp}/exp_lpips/data/Vid4/GT"},
+            f"{tmp}/ckpt/FRVSR_BD_smoke.npz",
+            {"PSNR": {"colorspace": "y"}, "SSIM": None,
+             "LPIPS": {"net": "alex", "version": 0.1}})
+        os.rename(os.path.join(tmp, "pretrained_models"),
+                  os.path.join(exp, "pretrained_models"))
+        os.makedirs(f"{tmp}/ckpt")
+        save_pytree(_jax_layout_params(rng, NF, NB, SCALE),
+                    f"{tmp}/ckpt/FRVSR_BD_smoke.npz")
+        seqs = ("calendar", "city")
+        for seq in seqs:
+            _write_seq(f"{exp}/data/Vid4/GT/{seq}", float32_to_uint8(
+                _smooth_frames(rng, TM_FRAMES, *TM_GT)))
+        os.chdir(exp)
+        try:
+            _reset_counts()
+            records, secs, warns = _cli(exp, yml, "0")
+            counts = _read_counts()
+            warped = len(seqs) * _frames_warped(TM_FRAMES + n_pad, 16)
+            _require(not warns and counts == {**dict.fromkeys(counts, 0),
+                                              "K1": warped},
+                     f"test mode with LPIPS: warnings {warns}, launches "
+                     f"{counts}")
+            with open(f"{exp}/metrics/Vid4_avg.json") as f:
+                avg = _json.load(f)["FRVSR_BD_smoke"]
+            cpu = LPIPS(device="cpu")
+            res = f"{exp}/results/Vid4/FRVSR_BD_smoke"
+            per_seq = {}
+            for seq in seqs:
+                g = np.stack([read_png(f"{exp}/data/Vid4/GT/{seq}/{i:04d}.png")
+                              for i in range(TM_FRAMES)])
+                s = np.stack([read_png(f"{res}/{seq}/{i:04d}.png")
+                              for i in range(TM_FRAMES)])
+                per_seq[seq] = float(np.mean([cpu(g[i], s[i])[0]
+                                              for i in range(TM_FRAMES)]))
+            got = {r["seq_idx"]: r["metrics"]["LPIPS"] for r in records}
+            want_avg = float(np.mean(list(per_seq.values())))
+            ok = (all(np.isclose(got[k], v, rtol=1e-4, atol=0)
+                      for k, v in per_seq.items())
+                  and np.isclose(float(avg["LPIPS"]), want_avg, rtol=1e-4,
+                                 atol=5e-7))
+            print(f"test mode with LPIPS ({secs:.2f} s, K1 {counts['K1']}): "
+                  f"per sequence {got} against the CPU from the PNGs "
+                  f"{per_seq}; JSON average {avg['LPIPS']} against "
+                  f"{want_avg:.6f} (rtol 1e-4): {'ok' if ok else 'FAIL'}")
+            _require(ok, "test mode's LPIPS differs from the CPU's")
+
+            summary = evaluate.main(["-m", "FRVSR_BD_smoke"])["Vid4"]
+            _require("LPIPS" in summary and "tLP100" in summary,
+                     f"the harness left out LPIPS: {list(summary)}")
+            with open(f"{res}/metric_log/metrics.csv") as f:
+                rows = [r.split(",") for r in f.read().splitlines()]
+            calc = MetricCalculator({"metric": {"LPIPS": {"net": "alex"}},
+                                     "device_ids": [0]})
+            for fi, seq in enumerate(seqs):
+                crops = [[crop_32(read_png(p))[0] for p in (
+                    f"{exp}/data/Vid4/GT/{seq}/{i:04d}.png",
+                    f"{res}/{seq}/{i:04d}.png")] for i in range(2, 10)]
+                calc.compute_sequence_metrics(
+                    seq, np.stack([c[0] for c in crops]),
+                    np.stack([c[1] for c in crops]))
+                start = [i for i, r in enumerate(rows)
+                         if f"LPIPS_{fi:02d}" in r][0]
+                col = rows[start].index(f"LPIPS_{fi:02d}")
+                column = [np.float32(r[col]) for r in
+                          rows[start + 1:start + 9]]
+                want = np.float32(calc.metric_dict[seq]["LPIPS"]).tolist()
+                _require(column == want, f"the harness's LPIPS column for "
+                         f"{seq} {column} differs from the metric "
+                         f"calculator's {want}")
+            brief = {k: [v[0], round(v[1], 6)] for k, v in summary.items()}
+            print(f"official harness on the test-mode PNGs (card): {brief}; "
+                  f"its LPIPS columns equal the metric calculator's on the "
+                  f"cropped frames")
+        finally:
+            os.chdir(cwd)
+
+        # seconds a frame: host clock per metric on one sequence, and
+        # LPIPS's device time per call
+        g = np.stack([read_png(f"{exp}/data/Vid4/GT/calendar/{i:04d}.png")
+                      for i in range(TM_FRAMES)])
+        s = np.stack([read_png(f"{res}/calendar/{i:04d}.png")
+                      for i in range(TM_FRAMES)])
+        host = {}
+        for m in ("PSNR", "SSIM", "LPIPS"):
+            opt = {"metric": {m: {"net": "alex"} if m == "LPIPS" else None},
+                   "device_ids": [0]}
+            os.chdir(exp)
+            try:
+                calc = MetricCalculator(opt)
+            finally:
+                os.chdir(cwd)
+            calc.compute_sequence_metrics("w", g[:2], s[:2])
+            t0 = time.perf_counter()
+            calc.compute_sequence_metrics("c", g, s)
+            host[m] = (time.perf_counter() - t0) / TM_FRAMES
+        lp = calc.lpips
+        xa = torch.from_numpy(g[:1].transpose(0, 3, 1, 2).astype(
+            np.float32) / 127.5 - 1).cuda()
+        xb = torch.from_numpy(s[:1].transpose(0, 3, 1, 2).astype(
+            np.float32) / 127.5 - 1).cuda()
+        with torch.inference_mode():
+            dev = _device_ms(lambda: lp.distance(xa, xb))
+        print(f"metrics on {TM_FRAMES} frames of {TM_GT[0]}x{TM_GT[1]}, host "
+              f"seconds a frame: PSNR {host['PSNR']:.4f}, SSIM "
+              f"{host['SSIM']:.4f}, LPIPS {host['LPIPS']:.4f} (device "
+              f"{_us(dev)} a frame; PSNR and SSIM run on the host) on {card}")
+    return counts["K1"]
+
+
 def main() -> int:
     import torch
 
@@ -3293,6 +3810,11 @@ def main() -> int:
     phase_gan_card_vs_cpu(sd, rng)
     for key, count in phase_train_mode(card).items():
         launches[key] += count
+    serve_launches, _ = phase_serving(card, params)
+    for key, count in serve_launches.items():
+        launches[key] += count
+    launches["K1"] += phase_profile_mode(card)
+    launches["K1"] += phase_lpips(card)
 
     _require("jax" not in sys.modules and "yaml" not in sys.modules,
              "jax or yaml was imported")

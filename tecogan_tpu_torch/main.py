@@ -4,6 +4,8 @@
         [--gpu_ids 0]
     python -m tecogan_tpu_torch.main --exp_dir E --mode test --opt E/test.yml \
         [--gpu_ids 0]
+    python -m tecogan_tpu_torch.main --exp_dir E --mode profile \
+        --opt E/train.yml --lr_size 3x134x320 [--test_speed] [--gpu_ids 0]
 
 Train mode trains FRVSR or TecoGAN from a records store (BD: GT only; BI:
 GT + LR) through the threaded host loader or, with ``device_resident:
@@ -20,12 +22,18 @@ Test mode reads the experiment's YAML, reads every test set's PNG folders
 generator checkpoint named by ``model.generator.load_path`` (``*.npz``
 sweeps ``G_iter{N}``) over every sequence, writes the SR frames as PNGs
 under ``test.res_dir/<dataset>/<checkpoint>/<sequence>/`` and scores them
-(PSNR, SSIM, and tOF where cv2 is installed) into
+(PSNR, SSIM, LPIPS where its weights are found, and tOF where cv2 is
+installed) into
 ``test.json_dir/<dataset>_avg.json`` or the log.
 
-Both run on ``cuda:0`` unless ``--gpu_ids -1`` asks for the CPU; without
-CUDA they raise. One process on one device only. ``--mode profile`` is not
-ported yet and raises.
+Profile mode prints a generator's analytic GFLOPs and parameters per
+module for one step at ``--lr_size`` (the JAX CLI's lines and numbers),
+``FlopCounterMode``'s count of one ``FRNet.step`` and, with
+``--test_speed``, the frames/s of 30 steps; ``TECOGAN_TRACE_DIR`` writes a
+``torch.profiler`` chrome trace of them.
+
+All three run on ``cuda:0`` unless ``--gpu_ids -1`` asks for the CPU;
+without CUDA they raise. One process on one device only.
 """
 
 from __future__ import annotations
@@ -33,13 +41,16 @@ from __future__ import annotations
 import contextlib
 import logging
 import math
+import os
 import os.path as osp
 import time
 
 import numpy as np
+import torch
 
 from .data import create_dataloader, create_test_dataset
 from .metrics import create_metric_calculator
+from .metrics.model_summary import flop_count, profile_frnet
 from .models import define_model
 from .ops.color import save_sequence
 from .utils import config as config_utils
@@ -247,19 +258,97 @@ def test(opt):
     return records
 
 
+def profile(opt, lr_size: str, test_speed: bool = False) -> dict:
+    """``tecogan_tpu/main.py::profile`` on the port: the analytic GFLOPs and
+    parameters of one generator step at ``lr_size`` ("CxHxW"), then
+    ``FlopCounterMode``'s count of one ``FRNet.step`` on the device (that
+    call is also the warm-up) and, with ``test_speed``, 30 more steps
+    timed on the host clock up to a synchronise. The generator's weights
+    are drawn from a seed and its compute dtype is the configuration's.
+    Returns the numbers it prints."""
+    from .models.base import select_device
+    from .models.networks import define_generator
+    from .models.networks.frnet import _compute_module
+
+    print_options(opt["model"]["generator"])
+    c, h, w = map(int, lr_size.split("x"))
+    scale = opt["scale"]
+    msg = "\n" + "*" * 40
+    msg += (f"\nResolution: {lr_size} -> "
+            f"{c}x{h * scale}x{w * scale} ({scale}x SR)")
+
+    device = select_device(opt)
+    cfg, build = define_generator(opt)
+    net = _compute_module(build(torch.Generator().manual_seed(0), device),
+                          cfg.dtype)
+
+    gflops, params_cnt = profile_frnet(cfg, (c, h, w))
+    tot_g, tot_p = 0.0, 0
+    for name in gflops:
+        msg += f'\n{"-" * 40}\nModule: [{name}]'
+        msg += f"\n    FLOPs (10^9): {gflops[name]:.3f}"
+        msg += f"\n    Parameters (10^6): {params_cnt[name] / 1e6:.3f}"
+        tot_g += gflops[name]
+        tot_p += params_cnt[name]
+    msg += f'\n{"-" * 40}\nOverall'
+    msg += f"\n    FLOPs (10^9): {tot_g:.3f}"
+    msg += f"\n    Parameters (10^6): {tot_p / 1e6:.3f}"
+
+    gen = torch.Generator().manual_seed(1)
+    lr_curr, lr_prev = (torch.rand((1, c, h, w), generator=gen)
+                        for _ in range(2))
+    hr_prev = torch.rand((1, c, scale * h, scale * w), generator=gen)
+    args = [t.to(device=device, dtype=cfg.dtype)
+            for t in (lr_curr, lr_prev, hr_prev)]
+    out = {"gflops": tot_g, "params": tot_p}
+    with torch.inference_mode():
+        out["counted_gflops"] = flop_count(net.step, *args) / 1e9
+        msg += (f"\n    FlopCounterMode: {out['counted_gflops']:.3f} GFLOPs "
+                f"(one FRNet.step: convolutions and resampling matmuls)")
+        msg += "\n" + "*" * 40
+        if test_speed:
+            trace_dir = os.environ.get("TECOGAN_TRACE_DIR")
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            trace = (torch.profiler.profile(activities=activities)
+                     if trace_dir else contextlib.nullcontext())
+            n_test = 30
+            with trace:
+                _sync(device)
+                t0 = time.perf_counter()
+                for _ in range(n_test):
+                    net.step(*args)
+                _sync(device)
+                dt = time.perf_counter() - t0
+            if trace_dir:
+                os.makedirs(trace_dir, exist_ok=True)
+                trace.export_chrome_trace(
+                    osp.join(trace_dir, "profile_trace.json"))
+            out["fps"] = n_test / dt
+            msg += (f"\nSpeed: {out['fps']:.3f} FPS "
+                    f"(averaged over {n_test} runs)\n" + "*" * 40)
+    log_info(msg)
+    return out
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def main(argv=None):
     """Returns the trained model in train mode, test mode's per-sequence
-    records in test mode."""
+    records in test mode, and profile's numbers in profile mode."""
     args = config_utils.parse_args(argv)
-    if args.mode == "profile":
-        raise NotImplementedError(
-            "--mode profile is not ported yet (ROADMAP Queue 1 item 1)")
-    if args.mode not in ("train", "test"):
+    if args.mode not in ("train", "test", "profile"):
         raise ValueError(
             f"Unrecognized mode: {args.mode} (train|test|profile)")
     opt = config_utils.parse_configs(args)
     setup_logger("base")
     path_utils.setup_paths(opt, args.mode)
+    if args.mode == "profile":
+        return profile(opt, args.lr_size, args.test_speed)
     return train(opt) if args.mode == "train" else test(opt)
 
 

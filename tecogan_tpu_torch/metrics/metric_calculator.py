@@ -1,16 +1,17 @@
-"""Test-mode metric calculator: PSNR, SSIM and tOF (port of
-``tecogan_tpu/metrics/metric_calculator.py``).
+"""Test-mode and validation metric calculator: PSNR, SSIM, LPIPS and tOF
+(port of ``tecogan_tpu/metrics/metric_calculator.py``).
 
 Per-frame metrics -> per-sequence means -> dataset average, and the JSON
 file keyed by model index, as in the JAX package:
 
 - PSNR on RGB or Y (DUF/BasicSR YCbCr), float64, 20*log10(255/RMSE);
 - SSIM on Y (``metrics/ssim.py``);
+- LPIPS (``metrics/lpips.py``, net-lin v0.1) on the run's device
+  (``opt['device_ids']``); where its weights are missing it is left out
+  with the JAX package's WARNING;
 - tOF: mean end-point error between OpenCV's Farneback flows of
   consecutive GT and SR frames, in grey. cv2 is imported when tOF is
-  configured; where it is missing, tOF is left out with a WARNING;
-- LPIPS is not ported yet (ROADMAP Queue 1 item 8): it is always left
-  out with a WARNING, as the JAX package does when its weights are missing.
+  configured; where it is missing, tOF is left out with a WARNING.
 
 One process computes every sequence, so there is nothing to gather across
 processes.
@@ -56,9 +57,18 @@ class MetricCalculator:
                 f"{list(_KNOWN_METRICS)}")
         self.psnr_colorspace = self.metric_opt.get(
             "PSNR", {}).get("colorspace", "y")
+        self.lpips = None
         if "LPIPS" in self.metric_opt:
-            self._drop("LPIPS", "not ported to tecogan_tpu_torch yet "
-                       "(ROADMAP Queue 1 item 8)")
+            from ..nn import select_device
+            from .lpips import LPIPS
+
+            lp = self.metric_opt["LPIPS"]
+            try:
+                self.lpips = LPIPS(net=lp.get("net", "alex"),
+                                   spatial=lp.get("spatial", False),
+                                   device=select_device(opt))
+            except FileNotFoundError as e:
+                self._drop("LPIPS", str(e))
         self._cv2 = None
         if "tOF" in self.metric_opt:
             try:
@@ -109,6 +119,13 @@ class MetricCalculator:
                 per_frame["PSNR"].append(self._psnr(*pair))
             if "SSIM" in self.metric_opt:
                 per_frame["SSIM"].append(self._ssim(*luma_pair()))
+            if "LPIPS" in self.metric_opt:
+                v = self.lpips(t_img, p_img)[0]
+                # the reference logs element [0,0,0,0] whatever the mode
+                # (`metric_calculator.py:219`): the distance, or with
+                # spatial set the map's top-left pixel (its quirk, kept)
+                per_frame["LPIPS"].append(float(v if v.ndim == 0
+                                                else v[0, 0]))
             if "tOF" in self.metric_opt:
                 cur_gray = (self._gray(t_img), self._gray(p_img))
                 if prev is not None:

@@ -11,7 +11,6 @@ update count) to ``state_iter{N}.pth`` with ``torch.save``, and
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import os.path as osp
@@ -19,61 +18,12 @@ import os.path as osp
 import numpy as np
 import torch
 
+from ..nn import inference_numerics, select_device
 from ..ops.degrade import downsample_bd
 from ..utils import ckpt as ckpt_io
 from ..utils.logging_utils import format_train_msg
 
 _log = logging.getLogger(__name__)
-
-
-def select_device(opt) -> torch.device:
-    """The one device ``opt['device_ids']`` names.
-
-    ``[]`` is an explicit CPU run; ids map to ``cuda:<id>`` and must exist;
-    no ids means ``cuda:0``. Without CUDA and without an explicit ``[]``
-    this raises rather than running on the CPU.
-    """
-    ids = opt.get("device_ids")
-    if ids is not None and len(ids) == 0:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; set device_ids: [] to run on "
-                           "the CPU explicitly")
-    if not ids:
-        return torch.device("cuda", 0)
-    count = torch.cuda.device_count()
-    bad = [i for i in ids if i >= count or i < 0]
-    if bad:
-        raise ValueError(f"device ids {bad} out of range: only {count} "
-                         f"devices available")
-    if len(ids) > 1:
-        raise NotImplementedError(
-            f"multi-device inference is not ported yet; got device_ids {ids}")
-    return torch.device("cuda", ids[0])
-
-
-@contextlib.contextmanager
-def inference_numerics(compute_dtype: str):
-    """The cuDNN and matmul settings inference runs under, restored after.
-
-    fp32 means fp32 and the same every run: PyTorch runs fp32 cuDNN
-    convolutions and matmuls in TF32 unless told not to, and cuDNN's
-    default fp32 transposed convolutions are not deterministic, so for
-    float32 work TF32 is off and cuDNN picks only deterministic algorithms.
-    bf16 runs under the settings as they are (it is deterministic without
-    them).
-    """
-    if compute_dtype != "float32":
-        yield
-        return
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32)
-    cudnn.deterministic = True
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 class BaseVSRModel:

@@ -48,7 +48,7 @@ from .fnet import FNet
 from .srnet import SRNet
 
 __all__ = ["FRNetConfig", "FRNet", "forward_sequence", "infer_sequence",
-           "infer_sequence_batch"]
+           "infer_sequence_batch", "stream_frames"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -284,15 +284,15 @@ def _chunk_frames(net: FRNet, cfg: FRNetConfig, cur, lr_flow, hr_prev,
                   out):
     """The default recurrence over one chunk: K1 warps the HR frame along
     the HR flow. cur (n, chunk, c, h, w), lr_flow (n*chunk, 2, h8, w8),
-    hr_prev (n, c, s*h, s*w); writes out (n, chunk, s*h, s*w, c) uint8 and
-    returns the last HR frame."""
+    hr_prev (n, c, s*h, s*w); appends each frame's uint8 (n, s*h, s*w, c)
+    to the list ``out`` and returns the last HR frame."""
     n, chunk, _, h, w = cur.shape
     s = cfg.scale
     hr_flow = net.hr_flow(lr_flow, h, w).reshape(n, chunk, 2, s * h, s * w)
     for i in range(chunk):
         warped = warp_planes(hr_prev, hr_flow[:, i].permute(0, 2, 3, 1))
         hr_prev = net.srnet(cur[:, i], warped)
-        out[:, i] = quantize_uint8(hr_prev).permute(0, 2, 3, 1)
+        out.append(quantize_uint8(hr_prev).permute(0, 2, 3, 1))
     return hr_prev
 
 
@@ -311,7 +311,7 @@ def _chunk_phases(net: FRNet, cfg: FRNetConfig, cur, lr_flow, hr_prev,
         warped = warp_phases(phase_planes(hr_prev, s), sy[:, i], sx[:, i], s)
         hr_prev = net.srnet.forward_packed(cur[:, i],
                                            warped.transpose(1, 2).flatten(1, 2))
-        out[:, i] = quantize_uint8(hr_prev).permute(0, 2, 3, 1)
+        out.append(quantize_uint8(hr_prev).permute(0, 2, 3, 1))
     return hr_prev
 
 
@@ -338,7 +338,7 @@ def _chunk_folded(net: FRNet, cfg: FRNetConfig, fold: dict, cur, lr_flow,
             lr_f[i:i + 1], space_to_depth(warped * masks["planes"], s),
             row_masks=masks, residual_mh=fold["mh"])
         hr = hr_prev.reshape(cfg.out_nc, n, band, s * w)[:, :, :s * h]
-        out[:, i] = quantize_uint8(hr).permute(1, 2, 3, 0)
+        out.append(quantize_uint8(hr).permute(1, 2, 3, 0))
     return hr_prev
 
 
@@ -364,47 +364,55 @@ def infer_sequence_batch(net, lr_seqs: torch.Tensor, cfg: FRNetConfig,
     lr_seqs = torch.as_tensor(lr_seqs)
     if not isinstance(net, nn.Module):
         net = FRNet.from_state_dict(cfg, net, device=lr_seqs.device)
+    net = _compute_module(net, cfg.dtype)
+    with torch.inference_mode():
+        return stream_frames(net, lr_seqs, cfg, chunk, fold_streams)
+
+
+def stream_frames(net: FRNet, lr_seqs: torch.Tensor, cfg: FRNetConfig,
+                  chunk: int = 16, fold_streams: bool = False
+                  ) -> torch.Tensor:
+    """``infer_sequence_batch``'s recurrence on a net already in the compute
+    dtype, with no mode of its own: the function a serving program traces
+    (``serving.export_stream``). Each frame's uint8 output is kept as it is
+    made and the frames are stacked once at the end, so a trace holds no
+    in-place write into a slice of the output."""
     dt = cfg.dtype
-    net = _compute_module(net, dt)
     device = next(net.parameters()).device
     n, t, h, w, c = lr_seqs.shape
     s = cfg.scale
+    # (n, t, c, h, w) in the compute dtype
+    x = lr_seqs.to(device=device, dtype=dt).permute(0, 1, 4, 2, 3)
+    n_chunks = -(-t // chunk)
+    chunk = -(-t // n_chunks)
+    pad = n_chunks * chunk - t
+    if pad:
+        x = torch.cat([x, x[:, -1:].expand(n, pad, c, h, w)], dim=1)
 
-    with torch.inference_mode():
-        # (n, t, c, h, w) in the compute dtype
-        x = lr_seqs.to(device=device, dtype=dt).permute(0, 1, 4, 2, 3)
-        n_chunks = -(-t // chunk)
-        chunk = -(-t // n_chunks)
-        pad = n_chunks * chunk - t
-        if pad:
-            x = torch.cat([x, x[:, -1:].expand(n, pad, c, h, w)], dim=1)
-
-        if fold_streams:
-            _, ph, band = _fold_geometry(s, h)
-            fold = {"ph": ph, "band": band,
-                    "masks": _fold_masks(s, n, h, ph, band, dt, device),
-                    "mh": torch.from_numpy(_fold_residual_mh(
-                        cfg, n, h, ph)).to(device=device, dtype=dt)}
-            run = functools.partial(_chunk_folded, net, cfg, fold)
-            hr_prev = torch.zeros((1, cfg.out_nc, n * band, s * w), dtype=dt,
-                                  device=device)
-        else:
-            run = functools.partial(
-                _chunk_phases if cfg.packed16 else _chunk_frames, net, cfg)
-            hr_prev = torch.zeros((n, cfg.out_nc, s * h, s * w), dtype=dt,
-                                  device=device)
-        lr_prev = torch.zeros((n, c, h, w), dtype=dt, device=device)
-        out = torch.empty((n, n_chunks * chunk, s * h, s * w, cfg.out_nc),
-                          dtype=torch.uint8, device=device)
-        for k in range(n_chunks):
-            cur = x[:, k * chunk:(k + 1) * chunk]
-            prevs = torch.cat([lr_prev[:, None], cur[:, :-1]], dim=1)
-            lr_flow = net.fnet(cur.reshape(n * chunk, c, h, w),
-                               prevs.reshape(n * chunk, c, h, w))
-            hr_prev = run(cur, lr_flow, hr_prev,
-                          out[:, k * chunk:(k + 1) * chunk])
-            lr_prev = cur[:, -1]
-    return out[:, :t]
+    if fold_streams:
+        _, ph, band = _fold_geometry(s, h)
+        fold = {"ph": ph, "band": band,
+                "masks": _fold_masks(s, n, h, ph, band, dt, device),
+                "mh": torch.from_numpy(_fold_residual_mh(
+                    cfg, n, h, ph)).to(device=device, dtype=dt)}
+        run = functools.partial(_chunk_folded, net, cfg, fold)
+        hr_prev = torch.zeros((1, cfg.out_nc, n * band, s * w), dtype=dt,
+                              device=device)
+    else:
+        run = functools.partial(
+            _chunk_phases if cfg.packed16 else _chunk_frames, net, cfg)
+        hr_prev = torch.zeros((n, cfg.out_nc, s * h, s * w), dtype=dt,
+                              device=device)
+    lr_prev = torch.zeros((n, c, h, w), dtype=dt, device=device)
+    frames = []
+    for k in range(n_chunks):
+        cur = x[:, k * chunk:(k + 1) * chunk]
+        prevs = torch.cat([lr_prev[:, None], cur[:, :-1]], dim=1)
+        lr_flow = net.fnet(cur.reshape(n * chunk, c, h, w),
+                           prevs.reshape(n * chunk, c, h, w))
+        hr_prev = run(cur, lr_flow, hr_prev, frames)
+        lr_prev = cur[:, -1]
+    return torch.stack(frames[:t], dim=1)
 
 
 def infer_sequence(net, lr_seq: torch.Tensor, cfg: FRNetConfig,

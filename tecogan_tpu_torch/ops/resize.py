@@ -27,6 +27,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 __all__ = [
     "resize_matrix",
@@ -229,8 +230,11 @@ def _device_matrix(mode: str, in_size: int, dtype: torch.dtype,
     """``resize_matrix`` as a tensor on ``device`` in ``dtype``, cached so
     the streaming loop pays no host-to-device copy per frame. Made outside
     inference mode even when first asked for inside it: a cached inference
-    tensor could not take part in a later training step's autograd."""
-    with torch.inference_mode(False):
+    tensor could not take part in a later training step's autograd. Made
+    real even when first asked for while ``torch.export`` traces with fake
+    tensors: the program then holds it as a constant on its device, and
+    the cache never holds a fake tensor."""
+    with torch.inference_mode(False), _disable_current_modes():
         m = torch.from_numpy(resize_matrix(mode, in_size, **kw))
         return m.to(device=device, dtype=dtype)
 

@@ -22,7 +22,14 @@ warps' small frames, by the launch.
 
 The wrappers dispatch on where their tensors lie: CPU tensors go to
 ``warp_planes_reference``, CUDA tensors to the kernel. Anything else
-raises; no path falls back from a kernel to the plain version.
+raises; no path falls back from a kernel to the plain version. K1 is the
+PyTorch operator ``tecogan_torch::warp_planes`` (``OPS``): its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, and its fake implementation gives the output's shape, dtype and
+strides, so that ``torch.export`` traces through it and a loaded serving
+program calls the same kernel as the live path. The operator is
+registered through ``torch.library.Library`` rather than ``custom_op``,
+which adds a Python dispatch layer of its own to every call.
 """
 
 from __future__ import annotations
@@ -33,9 +40,13 @@ import threading
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-__all__ = ["stride_grid", "tile_pixels", "tile_plan", "warp_planes",
+__all__ = ["OPS", "stride_grid", "tile_pixels", "tile_plan", "warp_planes",
            "warp_planes_reference", "warp_rgb"]
+
+# the port's operators (K1 here, K5 in warp_phases.py)
+OPS = torch.library.Library("tecogan_torch", "DEF")
 
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # K1's C entry point for each (planes, flow) dtype pair
@@ -315,14 +326,20 @@ def warp_planes(planes: torch.Tensor, flow: torch.Tensor, band: int = 0,
     ``clip(i mod band + fy, 0, band_valid - 1)`` within its own band. H must
     be a multiple of ``band``.
 
-    CPU tensors: ``warp_planes_reference``. CUDA tensors: K1, launched on
-    the current stream; the planes are contiguous NCHW, the flow may have
-    any strides (e.g. the (n, H, W, 2) view of an NCHW flow).
+    Calls the operator ``tecogan_torch::warp_planes``. CPU tensors:
+    ``warp_planes_reference``. CUDA tensors: K1, launched on the current
+    stream; the planes are contiguous NCHW, the flow may have any strides
+    (e.g. the (n, H, W, 2) view of an NCHW flow). Other devices raise.
     ``warp_planes.launches`` counts kernel launches, and
-    ``warp_planes.band_launches`` those of them in band mode.
+    ``warp_planes.band_launches`` those of them in band mode, whether the
+    call comes from the live path or from a loaded program.
     """
-    if not planes.is_cuda and all_on_cpu(planes, flow):
-        return warp_planes_reference(planes, flow, band, band_valid)
+    return _PLANES_OP(planes, flow, band, band_valid)
+
+
+def _warp_planes_cuda(planes: torch.Tensor, flow: torch.Tensor,
+                      band: int = 0, band_valid: int = 0) -> torch.Tensor:
+    """The operator's CUDA implementation: checks, then one K1 launch."""
     index = cuda_index("warp_planes", planes, flow)
     name = _PLANES_ENTRY.get((planes.dtype, flow.dtype))
     if name is None:
@@ -339,6 +356,33 @@ def warp_planes(planes: torch.Tensor, flow: torch.Tensor, band: int = 0,
     warp_planes.launches += 1
     warp_planes.band_launches += bool(band)
     return out
+
+
+def require_fake(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a fake tensor: an operator's fake
+    implementation serves tracing only, and a plain meta tensor (or a mix
+    of meta and CPU tensors) has no kernel."""
+    if not all(is_fake(t) for t in tensors):
+        devs = ", ".join(str(t.device) for t in tensors)
+        raise ValueError(f"{name} runs on CPU tensors (plain version) or "
+                         f"CUDA tensors (kernel); got {devs}")
+
+
+def _warp_planes_fake(planes: torch.Tensor, flow: torch.Tensor,
+                      band: int = 0, band_valid: int = 0) -> torch.Tensor:
+    require_fake("warp_planes", planes, flow)
+    check_warp_shapes("warp_planes", planes.shape, flow.shape)
+    check_band(planes.shape[-2], band, band_valid)
+    return torch.empty_like(planes, memory_format=torch.contiguous_format)
+
+
+OPS.define("warp_planes(Tensor planes, Tensor flow, int band=0, "
+           "int band_valid=0) -> Tensor")
+OPS.impl("warp_planes", _warp_planes_cuda, "CUDA")
+OPS.impl("warp_planes", warp_planes_reference, "CPU")
+torch.library.register_fake("tecogan_torch::warp_planes", _warp_planes_fake,
+                            lib=OPS)
+_PLANES_OP = torch.ops.tecogan_torch.warp_planes.default
 
 
 def warp_rgb(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

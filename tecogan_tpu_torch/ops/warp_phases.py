@@ -17,7 +17,10 @@ columns; it loops over channels and is bound by memory traffic.
 
 The wrapper dispatches on where its tensors lie: CPU tensors go to
 ``warp_phases_reference``, CUDA tensors to the kernel. Anything else
-raises; no path falls back from the kernel to the plain version.
+raises; no path falls back from the kernel to the plain version. K5 is the
+PyTorch operator ``tecogan_torch::warp_phases`` (CUDA: the kernel; CPU:
+the plain version; fake: the output's size and strides), so a
+``packed16`` serving program calls the kernel the live path calls.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ import functools
 
 import torch
 
-from .warp_cuda import (INT32_MAX, _DTYPE_TAG, all_on_cpu, cuda_index,
-                        launch, tile_plan)
+from .warp_cuda import (INT32_MAX, OPS, _DTYPE_TAG, cuda_index, launch,
+                        require_fake, tile_plan)
 
 __all__ = ["phase_planes", "warp_phases", "warp_phases_reference"]
 
@@ -120,15 +123,20 @@ def warp_phases(planes: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     ``(sy, sx)`` of each output phase; shapes and result as
     ``warp_phases_reference``.
 
-    CPU tensors: ``warp_phases_reference``. CUDA tensors: K5 (``scale`` 2
-    or 4), launched on the current stream; the planes (f32 or bf16) are
-    read through their element strides, so ``phase_planes(hr, s)`` of a
+    Calls the operator ``tecogan_torch::warp_phases``. CPU tensors:
+    ``warp_phases_reference``. CUDA tensors: K5 (``scale`` 2 or 4),
+    launched on the current stream; the planes (f32 or bf16) are read
+    through their element strides, so ``phase_planes(hr, s)`` of a
     contiguous HR frame needs no copy; the coordinates are f32, any
-    strides.
+    strides. Other devices raise.
     ``warp_phases.launches`` counts kernel launches.
     """
-    if not planes.is_cuda and all_on_cpu(planes, sy, sx):
-        return warp_phases_reference(planes, sy, sx, scale)
+    return _PHASES_OP(planes, sy, sx, scale)
+
+
+def _warp_phases_cuda(planes: torch.Tensor, sy: torch.Tensor,
+                      sx: torch.Tensor, scale: int) -> torch.Tensor:
+    """The operator's CUDA implementation: checks, then one K5 launch."""
     index = cuda_index("warp_phases", planes, sy, sx)
     name = _PHASES_ENTRY.get(planes.dtype)
     if name is None:
@@ -146,6 +154,17 @@ def warp_phases(planes: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
            out.data_ptr(), *args)
     warp_phases.launches += 1
     return out
+
+
+def _warp_phases_fake(planes: torch.Tensor, sy: torch.Tensor,
+                      sx: torch.Tensor, scale: int) -> torch.Tensor:
+    require_fake("warp_phases", planes, sy, sx)
+    p = _planes6(planes, scale)
+    _check_coords(p, sy, sx)
+    n, s, _, c, h, w = p.shape
+    chw = c * h * w
+    return planes.new_empty_strided((n, c, s * s, h, w),
+                                    (s * s * chw, h * w, chw, w, 1))
 
 
 @functools.lru_cache(maxsize=256)
@@ -192,4 +211,11 @@ def _phases_plan(scale: int, shape: torch.Size, strides: tuple,
     return args, (n, c, s * s, h, w), (s * s * chw, h * w, chw, w, 1)
 
 
+OPS.define("warp_phases(Tensor planes, Tensor sy, Tensor sx, int scale) "
+           "-> Tensor")
+OPS.impl("warp_phases", _warp_phases_cuda, "CUDA")
+OPS.impl("warp_phases", warp_phases_reference, "CPU")
+torch.library.register_fake("tecogan_torch::warp_phases", _warp_phases_fake,
+                            lib=OPS)
+_PHASES_OP = torch.ops.tecogan_torch.warp_phases.default
 warp_phases.launches = 0

@@ -77,11 +77,11 @@ def load_pytree(path):
 def load_generator_params(path, nb: int = 10, scale: int = 4) -> dict:
     """Generator weights from a native ``.npz`` or a reference ``.pth``,
     as the port's state dict."""
-    from ..models import convert
+    from .layout import load_state_dict, state_dict_from_jax
 
     if str(path).endswith(".pth"):
-        return convert.load_state_dict(path)
-    return convert.state_dict_from_jax(load_pytree(path), nb, scale)
+        return load_state_dict(path)
+    return state_dict_from_jax(load_pytree(path), nb, scale)
 
 
 def latest_training_state(ckpt_dir):

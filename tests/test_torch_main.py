@@ -173,13 +173,11 @@ def test_tecogan_test_yml_runs_the_generator(tree):
 
 @pytest.mark.parametrize("mode", ["train", "profile"])
 def test_unported_modes_raise(tree, mode):
-    """Profile mode is not ported and raises before it reads anything;
-    train mode is ported, so it goes on to read its YAML (missing here)."""
+    """Train and profile mode are ported, so each goes on to read its YAML
+    (missing here) and raises there, having written nothing."""
     exp = tree / f"mode_{mode}"
     os.makedirs(exp)
-    err, match = ((FileNotFoundError, "missing.yml") if mode == "train"
-                  else (NotImplementedError, "ROADMAP Queue 1 item"))
-    with pytest.raises(err, match=match):
+    with pytest.raises(FileNotFoundError, match="missing.yml"):
         torch_main(["--exp_dir", str(exp), "--mode", mode, "--opt",
                     str(exp / "missing.yml"), "--gpu_ids", "-1"])
     assert os.listdir(exp) == []

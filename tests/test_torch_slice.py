@@ -195,7 +195,8 @@ def test_vsr_model_infer_numerics(monkeypatch, rng, dtype):
 def test_port_imports_without_jax():
     """Every tecogan_tpu_torch module imports with jax, the JAX package,
     cv2 and yaml blocked; a CPU infer_sequence, a CPU FRVSR training step
-    and a CPU TecoGAN step launch no kernel."""
+    and a CPU TecoGAN step launch no kernel; a serving artifact exports,
+    loads and serves PNG frames, profile mode runs and LPIPS scores."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "tecogan_tpu", "cv2", "yaml"):
@@ -257,6 +258,43 @@ def test_port_imports_without_jax():
         assert all(bool(torch.isfinite(v)) for v in logs.values())
         assert (warp_rgb.launches, warp_dimage.launches,
                 warp_dflow.launches) == (0, 0, 0)
+        import os, tempfile
+        import numpy as np
+        from tecogan_tpu_torch import serve, serving
+        from tecogan_tpu_torch.main import main
+        from tecogan_tpu_torch.metrics.lpips import LPIPS, AlexNetFeatures
+        from tecogan_tpu_torch.utils.png import write_png
+        tmp = tempfile.mkdtemp()
+        sd = net.state_dict()
+        serving.save_artifact(f"{tmp}/m.tecosrv", serving.export_stream(
+            sd, cfg, 1, 3, 16, 16, chunk=2, platforms=["cpu"]),
+            {"n": 1, "t": 3, "h": 16, "w": 16, "scale": 4, "nb": 1},
+            params=sd)
+        os.makedirs(f"{tmp}/in/s")
+        for i in range(3):
+            write_png(f"{tmp}/in/s/{i}.png",
+                      np.full((16, 16, 3), 40 * i, np.uint8))
+        assert serve.main([f"{tmp}/m.tecosrv", f"{tmp}/in", f"{tmp}/out",
+                           "--quiet"]) == {"s": 3}
+        assert sorted(os.listdir(f"{tmp}/out/s")) == ["0.png", "1.png",
+                                                      "2.png"]
+        with open(f"{tmp}/train.yml", "w") as f:
+            f.write("scale: 4\\ndataset:\\n  degradation:\\n    type: BD\\n"
+                    "model:\\n  name: FRVSR\\n  generator:\\n    name: FRNet\\n"
+                    "    in_nc: 3\\n    out_nc: 3\\n    nf: 8\\n    nb: 1\\n")
+        prof = main(["--exp_dir", tmp, "--mode", "profile", "--opt",
+                     f"{tmp}/train.yml", "--gpu_ids", "-1", "--lr_size",
+                     "3x16x16"])
+        assert prof["gflops"] > 0 and prof["counted_gflops"] > 0
+        torch.save(AlexNetFeatures().state_dict(), f"{tmp}/alexnet.pth")
+        torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1)
+                    for i, c in enumerate((64, 192, 384, 256, 256))},
+                   f"{tmp}/alex.pth")
+        d = LPIPS("alex", f"{tmp}/alexnet.pth", f"{tmp}/alex.pth",
+                  device="cpu")(np.zeros((48, 48, 3), np.uint8),
+                                np.full((48, 48, 3), 90, np.uint8))
+        assert d.shape == (1,) and np.isfinite(d).all()
+        assert warp_planes.launches == 0, warp_planes.launches
         print(len(mods), "modules")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=_REPO,

@@ -197,6 +197,7 @@ def test_resumed_run_with_the_budget_spent_trains_nothing(tmp_path, data,
     _run(exp, _opt(data, total_iter=2))
     path = exp / "train" / "ckpt" / "state_iter2.pth"
     mtime = os.path.getmtime(path)
+    caplog.clear()  # the first run's lines, where "base" already logs INFO
     with caplog.at_level("INFO", logger="base"):
         model = _run(exp, _opt(data, total_iter=2))
     assert model.state["step"] == 2

@@ -305,14 +305,17 @@ def test_wrappers_pack_what_the_c_launchers_read(monkeypatch, rng, kernel):
     lands where the launcher reads it (``arg_ptr<CUstream_st>(a, k)``),
     and every ``strides_from(a + k)`` reads the element strides of the
     tensor it stands for. The wrappers run on CPU tensors with the device
-    checks and the launch stubbed out."""
+    checks and the launch stubbed out; K1 and K5, which are operators whose
+    CPU implementation is the plain version, through the CUDA
+    implementation the dispatcher picks for CUDA tensors."""
     from tecogan_tpu_torch.ops import warp_phases as wp
 
     calls = []
     for mod in (warp_cuda, warp_vjp, wp):
-        monkeypatch.setattr(mod, "all_on_cpu", lambda *t: False)
         monkeypatch.setattr(mod, "launch",
                             lambda name, index, *a: calls.append(a))
+    for mod in (warp_cuda, warp_vjp):
+        monkeypatch.setattr(mod, "all_on_cpu", lambda *t: False)
     monkeypatch.setattr(warp_cuda, "cuda_index", lambda name, *t: 0)
     monkeypatch.setattr(wp, "cuda_index", lambda name, *t: 0)
     monkeypatch.setattr(warp_vjp, "_dimage_slots", lambda index: 7)
@@ -324,8 +327,9 @@ def test_wrappers_pack_what_the_c_launchers_read(monkeypatch, rng, kernel):
     sx = torch.rand(1, 4, 6, 4).transpose(2, 3)
     channels_last = x.contiguous(memory_format=torch.channels_last)
     run, strides = {
-        "K1": (lambda: warp_planes(x, flow), [flow]),
-        "K1 band": (lambda: warp_planes(x, flow, 4, 3), [flow]),
+        "K1": (lambda: warp_cuda._warp_planes_cuda(x, flow), [flow]),
+        "K1 band": (lambda: warp_cuda._warp_planes_cuda(x, flow, 4, 3),
+                    [flow]),
         "K2": (lambda: warp_rgb(channels_last, flow),
                [channels_last, channels_last, flow]),
         "K3": (lambda: warp_dimage(channels_last, flow, torch.bfloat16),
@@ -333,7 +337,7 @@ def test_wrappers_pack_what_the_c_launchers_read(monkeypatch, rng, kernel):
         "K3+K4": (lambda: warp_dimage_dflow(channels_last, x, flow),
                   [channels_last, channels_last, flow, x]),
         "K4": (lambda: warp_dflow(g, x, flow), [g, x, flow]),
-        "K5": (lambda: wp.warp_phases(
+        "K5": (lambda: wp._warp_phases_cuda(
             wp.phase_planes(torch.randn(1, 3, 8, 12), 2), sy, sx, 2),
             [sy, sx]),
     }[kernel]
