@@ -119,6 +119,28 @@ Phases, each fatal on failure (nonzero exit, no result line):
    official harness (official_metrics.evaluate) on those PNGs with LPIPS
    and tLP100, its LPIPS column equal to the metric calculator's; host
    and device seconds a frame of LPIPS beside PSNR's and SSIM's.
+18. K1's window mode (row-sharded inference's warp of a slab of a taller
+   image, clamped at the global border) against its plain version, bit for
+   bit, at the sharded path's geometry (LR 512x960 at 4x, 4 shards: both
+   border shards and an interior one; f32/bf16 planes and flow; smooth and
+   i.i.d. flow), and on the degenerate window against K1; timed (run with
+   the kernels after phase 3);
+19. row-sharded inference (infer_sequence_sp) at full width, 8 frames of
+   512x960 to 4K in one chunk on 2 and 4 shards of the one card, against
+   the unsharded infer_sequence: fp32 within 1 gray level on <=0.02% of
+   pixels, bf16 in the same band; K1's window mode once
+   per shard and frame; the FPS of each in turns with the device idle
+   share (on one card sharding only adds halo work);
+20. data parallelism: 2 ranks spawned on the one card with torchrun's
+   environment over gloo, its collectives on CUDA tensors; the Vimeo FRVSR
+   train.yml geometry for 3 bf16 steps and one fp32 step, one fp32 TecoGAN
+   step on the shipped train.yml under the adaptive vote (D's lr 0):
+   identical rank logs, weights and gradients, the fp32 two-rank step
+   equal to one rank's at the doubled batch (losses, gradients, G's Adam
+   updates, D's BatchNorm running stats, the vote), the launches per rank
+   those of the structure, the bf16 step time of the two ranks sharing the
+   card beside one process at the global batch; then the CLI's --mode
+   train for 2 iterations at world size 1 over NCCL.
 
 Every kernel is timed beside its plain version, its device time (from
 torch.profiler), one PyTorch library call that computes the same function
@@ -1671,12 +1693,14 @@ def phase_fps(model, card, variants, streams=1):
 
 
 def _kernel_counters():
-    from tecogan_tpu_torch.ops.warp_cuda import warp_planes, warp_rgb
+    from tecogan_tpu_torch.ops.warp_cuda import (warp_planes,
+                                                 warp_planes_window, warp_rgb)
     from tecogan_tpu_torch.ops.warp_phases import warp_phases
     from tecogan_tpu_torch.ops.warp_vjp import warp_dflow, warp_dimage
 
-    return {"K1": warp_planes, "K2": warp_rgb, "K3": warp_dimage,
-            "K4": warp_dflow, "K5": warp_phases}
+    return {"K1": warp_planes, "K1 window": warp_planes_window,
+            "K2": warp_rgb, "K3": warp_dimage, "K4": warp_dflow,
+            "K5": warp_phases}
 
 
 def _reset_counts():
@@ -3757,6 +3781,619 @@ def phase_lpips(card):
     return counts["K1"]
 
 
+# ------------------------------------- K1 window, row sharding, data parallel
+
+# row-sharded inference (phases 18-19): LR 512x960 -> 2048x3840 (4K), 8
+# frames in one chunk, 2 and 4 shards on the one card
+SP_LR, SP_FRAMES, SP_CHUNK, SP_SHARDS = (512, 960), 8, 8, (2, 4)
+# fp32 sharded against unsharded: the JAX package's band
+# (tests/test_sp_inference.py)
+SP_F32_MAX_DIFF, SP_F32_FRAC = 1, 2e-4
+# bf16 sharded against unsharded: the same band (measured on the card:
+# bit-identical at k = 2 and 4, PERF.md section 6)
+SP_BF16_MAX_DIFF, SP_BF16_FRAC = 1, 2e-4
+# data parallel (phase 20): 2 ranks on the one card over gloo
+DP_WORLD, DP_STEPS = 2, 3
+# the fp32 two-rank step against one rank at the doubled batch: losses
+# within rtol 1e-5 (sums in another order), each weight's Adam update
+# within 5% of lr of the other's but for at most 2 elements (or 0.1% of
+# the tensor), none beyond 4.2 lr (tests/test_torch_gan_step.py's rule);
+# D's BatchNorm running stats within rtol 1e-5, atol 1e-6
+DP_LOSS_RTOL, DP_BN_RTOL, DP_BN_ATOL = 1e-5, 1e-5, 1e-6
+# each gradient tensor (averaged over the ranks) against one rank's at the
+# doubled batch: relative L2 error 1e-3, phase 11's card-vs-CPU band; it
+# also catches a gradient off by a factor, which Adam's first step (about
+# lr times its sign) would hide. These GAN checks run with D's lr 0, as
+# phase 13 does: G's losses and gradient read D after D's Adam step, and at
+# D's shipped lr an element of D whose gradient sits at fp32's noise level
+# steps either way (measured: G's conv_in gradient 2.1e-3 from one rank's,
+# p_fake_G 1.4e-5 relative; PERF.md section 6). A second step at D's
+# shipped lr holds D's Adam update to one rank's by the rule above.
+DP_GRAD_REL = STEP_F32_GRAD_REL
+# D's gradient: twice its fp32 distance from float64 (0.0122 relative in
+# conv_in, phase 13's finding: train-mode BatchNorm's backward cancels most
+# of it, so two fp32 sums in other orders differ by up to about twice
+# that; measured here 1.37e-3 in conv_in, PERF.md section 6). With D's
+# BatchNorm backward left on each rank (a fault planted once), D's
+# gradient tensors read 0.245-1.36 and G's 0.031-0.108.
+DP_D_GRAD_REL = 2.5e-2
+# the CLI's store for its world-size-1 run over NCCL
+DP_CLI_GT, DP_CLI_FRAMES = (240, 320), 12
+
+
+def _window_case(gen, dev, hx, ho, ww, pd, fd, smooth, sigma):
+    """Planes (1, 3, hx, ww) and the (1, ho, ww, 2) NHWC view of an NCHW
+    flow, as the sharded path hands them to K1's window mode."""
+    import torch
+
+    planes = torch.randn((1, 3, hx, ww), generator=gen, device=dev).to(pd)
+    if smooth:
+        flow = _smooth_flow(gen, dev, 1, ho, ww, sigma)
+    else:
+        flow = torch.randn((1, 2, ho, ww), generator=gen, device=dev) * sigma
+    return planes, flow.to(fd).permute(0, 2, 3, 1)
+
+
+def phase_k1_window(card):
+    """K1's window mode against warp_planes_window_reference on the card,
+    bit for bit, at each of the sharded path's geometries (LR 512x960 on 2
+    and on 4 shards: both border shards and an interior one; planes and
+    flow f32/bf16; smooth and i.i.d. flow), and on the degenerate window
+    against K1 itself. Returns its numbers at the interior shard of 4 (bf16,
+    smooth flow)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tecogan_tpu_torch.models.networks import FRNetConfig
+    from tecogan_tpu_torch.models.networks.frnet_sp import sp_geometry
+    from tecogan_tpu_torch.ops.warp_cuda import (bilinear_taps, warp_planes,
+                                                 warp_planes_reference,
+                                                 warp_planes_window,
+                                                 warp_planes_window_reference)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    (h, w), s = SP_LR, SCALE
+    ww = s * w
+
+    def geometry(k):
+        """The slab's and the output's rows, and shard j's window starts."""
+        geo = sp_geometry(FRNetConfig(nf=NF, nb=NB, scale=SCALE), h, k)
+        v, b2 = geo["v"], geo["b2"]
+        return (s * v + 2 * b2, s * geo["l_sr"],
+                lambda j: (s * geo["sr_start"][j], s * j * v - b2))
+
+    n_cases, shapes = 0, []
+    for k in SP_SHARDS:
+        hx, ho, window = geometry(k)
+        shapes.append(f"k={k}: slab {hx} rows, output {ho}, shards "
+                      f"{sorted({0, 1, k - 1})}")
+        for j in sorted({0, 1, k - 1}):
+            out_y0, x_y0 = window(j)
+            for pd in dts.values():
+                for fd in dts.values():
+                    for smooth, sigma in ((True, 6.0), (False, 30.0)):
+                        planes, flow = _window_case(gen, dev, hx, ho, ww, pd,
+                                                    fd, smooth, sigma)
+                        torch.cuda.synchronize()
+                        got = warp_planes_window(planes, flow, out_y0, x_y0,
+                                                 s * h)
+                        torch.cuda.synchronize()
+                        ref = warp_planes_window_reference(
+                            planes, flow, out_y0, x_y0, s * h)
+                        err = float((got.float() - ref.float()).abs().max())
+                        _require(torch.equal(got, ref),
+                                 f"K1 window disagrees with its plain "
+                                 f"version: shard {j} of {k}, planes {pd}, "
+                                 f"flow {fd}, "
+                                 f"{'smooth' if smooth else 'iid'} sigma "
+                                 f"{sigma}, max abs err {err}")
+                        n_cases += 1
+    # the degenerate window is K1 itself
+    for pd in dts.values():
+        for smooth, sigma in ((True, 6.0), (False, 30.0)):
+            planes, flow = _window_case(gen, dev, 536, 536, 1280, pd,
+                                        torch.bfloat16, smooth, sigma)
+            got = warp_planes_window(planes, flow, 0, 0, 536)
+            _require(torch.equal(got, warp_planes(planes, flow))
+                     and torch.equal(got, warp_planes_reference(planes,
+                                                                flow)),
+                     f"K1 window on the whole image differs from K1 "
+                     f"(planes {pd})")
+            n_cases += 1
+    print(f"K1 window against its plain version: {n_cases} cases bit for "
+          f"bit (width {ww}, h_glob {s * h}; {'; '.join(shapes)}; planes "
+          f"and flow f32/bf16; smooth sigma 6 and i.i.d. sigma 30 flow; the "
+          f"degenerate window equal to K1 at (1,3,536,1280))")
+
+    k = max(SP_SHARDS)
+    hx, ho, window = geometry(k)
+    out_y0, x_y0 = window(1)
+    planes, flow = _window_case(gen, dev, hx, ho, ww, torch.bfloat16,
+                                torch.bfloat16, True, 6.0)
+    # grid_sample on the slab, the global border emulated in the grid: the
+    # sample row clamped in global rows, then moved into the slab
+    ii = torch.arange(ho, dtype=torch.float32, device=dev)[:, None]
+    jj = torch.arange(ww, dtype=torch.float32, device=dev)[None, :]
+    f = flow.float()
+    gy = torch.clamp(out_y0 + ii + f[..., 1], 0, s * h - 1) - x_y0
+    grid = torch.stack([(jj + f[..., 0]) * (2.0 / (ww - 1)) - 1.0,
+                        gy * (2.0 / (hx - 1)) - 1.0], -1).bfloat16()
+    # the bound's bytes: the slab rows this flow's taps touch, the flow
+    # and the output
+    y0, _, y1, _, _, _ = bilinear_taps(flow, ho, ww, out_y0=out_y0,
+                                       h_glob=s * h)
+    rows = torch.unique(torch.clamp(torch.cat([y0, y1]) - x_y0, 0, hx - 1))
+    out = warp_planes_window(planes, flow, out_y0, x_y0, s * h)
+    t = _time_kernel(
+        f"K1 window time slab {tuple(planes.shape)} -> {tuple(out.shape)} "
+        f"(shard 1 of {k}) bf16 planes+flow", card,
+        lambda: warp_planes_window(planes, flow, out_y0, x_y0, s * h),
+        lambda: warp_planes_window_reference(planes, flow, out_y0, x_y0,
+                                             s * h),
+        lambda: F.grid_sample(planes, grid, mode="bilinear",
+                              padding_mode="border", align_corners=True),
+        _bound("K1", (planes[:, :, :rows.numel()], flow), (out,),
+               out[:, 0].numel(), 3))
+    print(f"K1 window's bound counts {rows.numel()} of the slab's {hx} rows "
+          f"(those the taps touch)")
+    t["max_abs_err"] = 0.0
+    return t
+
+
+def _psnr_u8(a, b):
+    d = (a.double() - b.double()).square().mean().item()
+    return float("inf") if d == 0 else 10 * math.log10(255.0 ** 2 / d)
+
+
+def phase_sp(card, params):
+    """Row-sharded inference (infer_sequence_sp) at full width on 2 and 4
+    shards of the one card against the unsharded infer_sequence on the same
+    weights: 8 LR frames of 512x960 to 4K, fp32 (TF32 off, cuDNN
+    deterministic) and bf16 to the JAX package's band; K1's
+    window mode once per shard and frame, and K1 not at all; then the FPS
+    of each in turns with its device idle share. Returns K1 window's
+    launches in the checked runs."""
+    import torch
+
+    from tecogan_tpu_torch.models.convert import state_dict_from_jax
+    from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
+                                                   infer_sequence,
+                                                   infer_sequence_sp)
+    from tecogan_tpu_torch.nn import inference_numerics
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 8)
+    lr = torch.from_numpy(_smooth_frames(rng, SP_FRAMES, *SP_LR)).to(dev)
+    sd = state_dict_from_jax(params, NB, SCALE)
+    launches = 0
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = FRNetConfig(nf=NF, nb=NB, scale=SCALE, compute_dtype=dtype)
+        net = FRNet.from_state_dict(cfg, sd, dev).to(cfg.dtype)
+        with inference_numerics(dtype):
+            ref = infer_sequence(net, lr, cfg, SP_CHUNK)
+            for k in SP_SHARDS:
+                torch.cuda.synchronize()
+                _reset_counts()
+                got = infer_sequence_sp(net, lr, cfg, [dev] * k, SP_CHUNK)
+                torch.cuda.synchronize()
+                counts = _read_counts()
+                _require(counts == {**dict.fromkeys(counts, 0),
+                                    "K1 window": SP_FRAMES * k},
+                         f"sharded inference (k={k}, {dtype}): launches "
+                         f"{counts}, expected K1 window once per shard and "
+                         f"frame and no other kernel")
+                launches += counts["K1 window"]
+                mx, frac = _uint8_diff(got, ref)
+                psnr = _psnr_u8(got, ref)
+                print(f"row-sharded inference k={k} {dtype}, "
+                      f"{SP_FRAMES}x{SP_LR[0]}x{SP_LR[1]} LR -> "
+                      f"{tuple(got.shape)}: against unsharded max "
+                      f"{mx} gray levels, {frac:.3e} of values differ, "
+                      f"{psnr:.2f} dB; K1 window {counts['K1 window']} "
+                      f"launches on {card}")
+                _require(got.shape == ref.shape and got.dtype == torch.uint8,
+                         f"sharded output {got.shape} {got.dtype}")
+                band = ((SP_F32_MAX_DIFF, SP_F32_FRAC) if dtype == "float32"
+                        else (SP_BF16_MAX_DIFF, SP_BF16_FRAC))
+                _require(mx <= band[0] and frac <= band[1],
+                         f"{dtype} sharded inference (k={k}) outside the "
+                         f"band: max {mx}, {frac:.3e} differ")
+        runs[dtype] = (net, cfg)
+
+    net, cfg = runs["bfloat16"]
+    fns = {"unsharded": lambda: infer_sequence(net, lr, cfg, SP_CHUNK)}
+    for k in SP_SHARDS:
+        fns[f"k={k}"] = (lambda k=k: infer_sequence_sp(net, lr, cfg,
+                                                       [dev] * k, SP_CHUNK))
+    times = {label: [] for label in fns}
+    for rep in range(3):
+        for label, fn in (fns.items() if rep % 2 == 0
+                          else list(fns.items())[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    for label, fn in fns.items():
+        wall, kernel_ms, events, _ = _device_totals(fn)
+        idle = ("not measured" if kernel_ms is None
+                else f"{1 - kernel_ms / wall:.3f}")
+        print(f"FPS row-sharded ({label}) {SP_FRAMES}x{SP_LR[0]}x{SP_LR[1]} "
+              f"-> 4x BD nf={NF} nb={NB} bf16 chunk {SP_CHUNK}, on one card: "
+              f"{SP_FRAMES / min(times[label]):.2f} frames/s (min of 3: "
+              f"{min(times[label]) * 1e3:.1f} ms; all "
+              f"{[round(x * 1e3, 1) for x in times[label]]}); under the "
+              f"profiler wall {wall:.1f} ms, kernels "
+              f"{'not measured' if kernel_ms is None else f'{kernel_ms:.1f}'}"
+              f" ms in {events} device events, device idle share {idle} on "
+              f"{card}")
+    return launches
+
+
+def _no_tf32():
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _dp_frvsr(out, mixed):
+    """FRVSR steps on the Vimeo train.yml geometry (DP_STEPS in bf16, one
+    in fp32) on this process's rows of global batches of DP_WORLD x
+    TRAIN_BATCH clips (all of them outside a process group): the running
+    logs after each step, the launches and each step's host ms (the step
+    and the log's read back), and the weights and gradients (saved to
+    ``out``)."""
+    import torch
+
+    from tecogan_tpu_torch.models import VSRModel
+    from tecogan_tpu_torch.parallel import dist
+
+    rng = np.random.default_rng(SEED + 9)
+    size = 128 + 2 * int(1.5 * 3)
+    batches = [_gt_clips(rng, TRAIN_BATCH * DP_WORLD, TRAIN_T, size)
+               for _ in range(DP_STEPS if mixed else 1)]
+    rows = dist.shard_rows(len(batches[0]), dist.rank(), dist.world())
+    with tempfile.TemporaryDirectory() as d:
+        opt = _train_opt(d)
+        opt["train"]["mixed_precision"] = mixed
+        # every rank on card 0: one id per rank
+        opt["device_ids"] = [0] * dist.world()
+        model = VSRModel(opt)
+    _reset_counts()
+    logs, ms = [], []
+    for gt in batches:
+        t0 = time.perf_counter()
+        model.train(model.prepare_training_data({"gt": gt[rows]}))
+        logs.append(model.get_running_log(model.state))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    torch.save({"g": model.net_g.state_dict(), "g_grad": _grads(model.net_g)},
+               out)
+    return logs, counts, ms
+
+
+def _grads(net):
+    """The gradients the last step left on ``net``'s parameters."""
+    return {k: p.grad.detach().clone() for k, p in net.named_parameters()
+            if p.grad is not None}
+
+
+def _dp_gan(g_path, out, d_lr_zero):
+    """One fp32 TecoGAN step on the shipped train.yml (adaptive vote), at
+    D's lr 0 (see DP_GRAD_REL) or at its shipped lr, on this process's rows
+    of a global batch of DP_WORLD x batch_size_per_gpu clips (all of them
+    outside a process group): its logs, the launches, and G and D with their
+    gradients and D's weights before the step (saved to ``out``)."""
+    import torch
+
+    from tecogan_tpu_torch.models import VSRGANModel
+    from tecogan_tpu_torch.parallel import dist
+
+    with tempfile.TemporaryDirectory() as d:
+        opt = _gan_opt(d, g_path)
+        opt["train"]["mixed_precision"] = False
+        if d_lr_zero:
+            opt["train"]["discriminator"]["lr"] = 0.0
+        per = opt["dataset"]["train"]["batch_size_per_gpu"]
+        size = opt["dataset"]["train"]["crop_size"] + 2 * int(1.5 * 3)
+        gt = _gt_clips(np.random.default_rng(SEED + 10), per * DP_WORLD,
+                       opt["train"]["tempo_extent"], size)
+        gt = gt[dist.shard_rows(len(gt), dist.rank(), dist.world())]
+        opt["device_ids"] = [0] * dist.world()
+        model = VSRGANModel(opt)
+    d_start = {k: v.clone() for k, v in model.net_d.state_dict().items()}
+    _reset_counts()
+    logs = model.train(model.prepare_training_data({"gt": gt}))
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    torch.save({"g": model.net_g.state_dict(), "d": model.net_d.state_dict(),
+                "g_grad": _grads(model.net_g), "d_grad": _grads(model.net_d),
+                "d_start": d_start}, out)
+    return {k: float(v) for k, v in logs.items()}, counts
+
+
+def _dp_worker(out_dir, g_path):
+    """One rank of phase 20 (spawned with torchrun's environment): gloo on
+    the card, its collectives on CUDA tensors; FRVSR in bf16 for DP_STEPS
+    steps and in fp32 for one, one fp32 TecoGAN step at D's lr 0 and one at
+    its shipped lr. Writes its results to out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as tdist
+
+    from tecogan_tpu_torch.parallel import dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_distributed(dev, backend="gloo")
+    rank = dist.rank()
+    res = {"rank": rank, "world": dist.world(),
+           "backend": tdist.get_backend()}
+    # which collectives gloo takes on CUDA tensors
+    t = torch.full((4,), float(rank + 1), device=dev)
+    tdist.all_reduce(t)
+    b = torch.full((4,), float(rank + 1), device=dev)
+    tdist.broadcast(b, 0)
+    res["cuda_all_reduce"], res["cuda_broadcast"] = t.tolist(), b.tolist()
+    logs, counts, ms = _dp_frvsr(f"{out_dir}/frvsr_bf16_{rank}.pt", True)
+    res.update(frvsr_bf16=logs, frvsr_bf16_counts=counts, frvsr_bf16_ms=ms)
+    _no_tf32()
+    logs, counts, _ = _dp_frvsr(f"{out_dir}/frvsr_f32_{rank}.pt", False)
+    res.update(frvsr_f32=logs, frvsr_f32_counts=counts)
+    for key, d_lr_zero in (("gan", True), ("gan_lr", False)):
+        logs, counts = _dp_gan(g_path, f"{out_dir}/{key}_{rank}.pt",
+                               d_lr_zero)
+        res.update({key: logs, f"{key}_counts": counts})
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _cli_nccl_worker(exp, yml, out):
+    """``--mode train`` through the CLI in a process with torchrun's
+    environment at world size 1: its group over NCCL."""
+    import torch.distributed as tdist
+
+    from tecogan_tpu_torch.main import main as cli_main
+
+    model = cli_main(["--exp_dir", exp, "--mode", "train", "--opt", yml,
+                      "--gpu_ids", "0"])
+    with open(out, "w") as f:
+        json.dump({"backend": tdist.get_backend(),
+                   "world": tdist.get_world_size(),
+                   "step": model.state["step"],
+                   "log": model.get_running_log(model.state)}, f)
+
+
+def _grads_close(got, want, what, tol=None):
+    """Each gradient tensor within relative L2 error ``tol`` (DP_GRAD_REL)
+    of the other's; returns the largest error."""
+    tol = DP_GRAD_REL if tol is None else tol
+    worst = 0.0
+    for k, v in want.items():
+        v = v.float()
+        err = float((got[k].float() - v).norm() / v.norm().clamp_min(1e-30))
+        _require(err <= tol, f"{what} gradient of {k}: relative L2 error "
+                 f"{err:.3e} against one rank's (tolerance {tol})")
+        worst = max(worst, err)
+    return worst
+
+
+def _adam_close(got, want, start, lr, what):
+    import torch
+
+    start = torch.as_tensor(start).to(got.device, torch.float32)
+    d = ((got.float() - start) - (want.float().to(got.device) - start)).abs()
+    off = int((d > 0.05 * lr).sum())
+    _require(off <= max(2, 1e-3 * d.numel()) and float(d.max()) <= 4.2 * lr,
+             f"{what}: the two-rank Adam update differs from the one-rank "
+             f"one ({off} of {d.numel()} elements off, max {float(d.max())})")
+    return off
+
+
+def _allclose(a, b, rtol, atol=0.0):
+    return abs(a - b) <= atol + rtol * abs(b)
+
+
+def phase_dp(card, params):
+    """Data parallelism on the one card: 2 ranks spawned with torchrun's
+    environment, gloo (NCCL refuses two ranks on one device) with every
+    collective on CUDA tensors; the Vimeo FRVSR train.yml geometry (2 clips
+    a rank x 10 frames, 128^2 crop) for DP_STEPS bf16 steps and one fp32
+    step, and one fp32 TecoGAN step on the shipped train.yml under the
+    adaptive vote at D's lr 0 (see DP_GRAD_REL) and one at its shipped lr.
+    Requires: identical rank logs, weights and gradients; in fp32 the
+    two-rank step equals one process's at the doubled batch (losses, each
+    gradient tensor, FRVSR's and G's Adam updates at D's lr 0, D's
+    BatchNorm running stats, the vote's distance, and D's Adam update at
+    its shipped lr); the K2/K3+K4/K4 launches per rank those of the step's
+    structure. Then the CLI trains 2 iterations at world size 1 over NCCL.
+    Returns the launches of rank 0's steps."""
+    import torch
+
+    from tecogan_tpu_torch.data.records import RecordWriter
+    from tecogan_tpu_torch.models.convert import state_dict_from_jax
+    from tecogan_tpu_torch.ops.color import float32_to_uint8
+    from tecogan_tpu_torch.parallel import dist
+    from tecogan_tpu_torch.utils.ckpt import save_pytree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        g_path = f"{tmp}/G_seed.npz"
+        save_pytree(params, g_path)
+        t0 = time.perf_counter()
+        dist.spawn(_dp_worker, DP_WORLD, tmp, g_path)
+        secs = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_WORLD):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+        r0 = ranks[0]
+        print(f"data parallel: {DP_WORLD} ranks spawned on {card} over "
+              f"{r0['backend']} in {secs:.1f} s; all_reduce on CUDA "
+              f"tensors {r0['cuda_all_reduce']}, broadcast "
+              f"{r0['cuda_broadcast']}")
+        _require(r0["cuda_all_reduce"] == [3.0] * 4
+                 and r0["cuda_broadcast"] == [1.0] * 4
+                 and ranks[1]["cuda_broadcast"] == [1.0] * 4,
+                 "gloo's collectives on CUDA tensors gave wrong values")
+        for key in ("frvsr_bf16", "frvsr_f32", "gan", "gan_lr"):
+            _require(all(r[key] == r0[key] for r in ranks),
+                     f"the ranks' {key} logs differ")
+        nets = {}
+        for key in ("frvsr_bf16", "frvsr_f32", "gan", "gan_lr"):
+            nets[key] = [torch.load(f"{tmp}/{key}_{r}.pt")
+                         for r in range(DP_WORLD)]
+            a, b = nets[key]
+            _require(all(torch.equal(a[n][k], b[n][k])
+                         for n in a for k in a[n]),
+                     f"the ranks' {key} weights or gradients differ")
+        print(f"data parallel: rank logs, weights and gradients identical on "
+              f"every rank "
+              f"(FRVSR bf16 {DP_STEPS} steps: last {r0['frvsr_bf16'][-1]}; "
+              f"TecoGAN vote distance {r0['gan']['distance']:.6f}, n_upd_D "
+              f"{r0['gan']['n_upd_D']})")
+        per = _expected_launches(TRAIN_T, True)
+        gan_t = 2 * _gan_opt(tmp, g_path)["train"]["tempo_extent"] - 1
+        per_gan = _gan_expected_launches(gan_t, True)
+        for r in ranks:
+            for key, steps, want in (("frvsr_bf16", DP_STEPS, per),
+                                     ("frvsr_f32", 1, per),
+                                     ("gan", 1, per_gan),
+                                     ("gan_lr", 1, per_gan)):
+                got = r[f"{key}_counts"]
+                exp = {**dict.fromkeys(got, 0),
+                       **{k: steps * v for k, v in want.items()}}
+                _require(got == exp, f"rank {r['rank']} {key}: launches "
+                         f"{got}, expected {exp}")
+        print(f"data parallel: launches per rank equal the structure "
+              f"(FRVSR {per} a step, TecoGAN {per_gan})")
+
+        # one process at the global batch, bf16 (the step time) and fp32
+        _, _, one_ms = _dp_frvsr(f"{tmp}/frvsr_bf16_one.pt", True)
+        print(f"data parallel step time, bf16 FRVSR (Vimeo train.yml, "
+              f"{TRAIN_T} frames of 128^2), host ms a step (train and log "
+              f"read) after the first: {DP_WORLD} ranks sharing the one card "
+              f"at {TRAIN_BATCH} clips each "
+              f"{[[round(x, 2) for x in r['frvsr_bf16_ms'][1:]] for r in ranks]}"
+              f"; one process at {DP_WORLD * TRAIN_BATCH} clips "
+              f"{[round(x, 2) for x in one_ms[1:]]} on {card}")
+        _no_tf32()
+        one_logs, _, _ = _dp_frvsr(f"{tmp}/frvsr_f32_one.pt", False)
+        one = torch.load(f"{tmp}/frvsr_f32_one.pt")
+        opt = _train_opt(tmp)
+        start = _start_weights(opt)
+        for k_, v in one_logs[0].items():
+            _require(_allclose(r0["frvsr_f32"][0][k_], v, DP_LOSS_RTOL),
+                     f"FRVSR fp32 {k_}: two ranks {r0['frvsr_f32'][0][k_]} "
+                     f"against one rank {v}")
+        lr_g = opt["train"]["generator"]["lr"]
+        for k_, v in one["g"].items():
+            _adam_close(nets["frvsr_f32"][0]["g"][k_], v, start[k_], lr_g,
+                        f"FRVSR fp32 {k_}")
+        rel = {"FRVSR": _grads_close(nets["frvsr_f32"][0]["g_grad"],
+                                     one["g_grad"], "FRVSR fp32")}
+        gan_one, _ = _dp_gan(g_path, f"{tmp}/gan_one.pt", True)
+        g1 = torch.load(f"{tmp}/gan_one.pt")
+        _require(gan_one["n_upd_D"] == r0["gan"]["n_upd_D"],
+                 f"the vote differs: {gan_one['n_upd_D']} against "
+                 f"{r0['gan']['n_upd_D']}")
+        for k_, v in gan_one.items():
+            _require(_allclose(r0["gan"][k_], v, DP_LOSS_RTOL, 1e-7),
+                     f"TecoGAN fp32 {k_}: two ranks {r0['gan'][k_]} against "
+                     f"one rank {v}")
+        g_start = state_dict_from_jax(params, NB, SCALE)
+        lr_g = _gan_opt(tmp, g_path)["train"]["generator"]["lr"]
+        for k_, v in g1["g"].items():
+            _adam_close(nets["gan"][0]["g"][k_], v, g_start[k_], lr_g,
+                        f"TecoGAN fp32 G {k_}")
+        for net, tol in (("g", DP_GRAD_REL), ("d", DP_D_GRAD_REL)):
+            rel[f"TecoGAN {net.upper()}"] = _grads_close(
+                nets["gan"][0][f"{net}_grad"], g1[f"{net}_grad"],
+                f"TecoGAN fp32 {net}", tol)
+        d2 = nets["gan"][0]["d"]
+        for k_, v in g1["d"].items():
+            if "running" in k_:
+                _require(torch.allclose(d2[k_], v, rtol=DP_BN_RTOL,
+                                        atol=DP_BN_ATOL),
+                         f"D's {k_} differs from one rank's by "
+                         f"{float((d2[k_] - v).abs().max())}")
+        # at D's shipped lr, D's Adam update against one rank's
+        gan_lr_one, _ = _dp_gan(g_path, f"{tmp}/gan_lr_one.pt", False)
+        one_lr = torch.load(f"{tmp}/gan_lr_one.pt")
+        _require(gan_lr_one["n_upd_D"] == r0["gan_lr"]["n_upd_D"] == 1.0,
+                 f"at D's shipped lr the vote did not pass on both: "
+                 f"{gan_lr_one['n_upd_D']}, {r0['gan_lr']['n_upd_D']}")
+        lr_d = _gan_opt(tmp, g_path)["train"]["discriminator"]["lr"]
+        off = {k_: _adam_close(nets["gan_lr"][0]["d"][k_], v,
+                               one_lr["d_start"][k_], lr_d,
+                               f"TecoGAN fp32 D {k_}")
+               for k_, v in one_lr["d"].items()
+               if "running" not in k_ and v.is_floating_point()}
+        print(f"data parallel fp32 at D's shipped lr {lr_d}: D's Adam "
+              f"update within the rule of one rank's at the doubled batch "
+              f"(elements off by more than 5% of a step: {off}); "
+              f"l_gan_D {r0['gan_lr']['l_gan_D']:.8f} vs "
+              f"{gan_lr_one['l_gan_D']:.8f}, p_fake_G "
+              f"{r0['gan_lr']['p_fake_G']:.8f} vs "
+              f"{gan_lr_one['p_fake_G']:.8f} on {card}")
+        print(f"data parallel fp32: two ranks against one at the doubled "
+              f"batch: FRVSR losses {r0['frvsr_f32'][0]} vs {one_logs[0]}; "
+              f"TecoGAN distance {r0['gan']['distance']:.8f} vs "
+              f"{gan_one['distance']:.8f}, l_gan_D {r0['gan']['l_gan_D']:.8f}"
+              f" vs {gan_one['l_gan_D']:.8f}, p_fake_G "
+              f"{r0['gan']['p_fake_G']:.8f} vs {gan_one['p_fake_G']:.8f}; D's "
+              f"BatchNorm running stats within rtol {DP_BN_RTOL}, atol "
+              f"{DP_BN_ATOL}; FRVSR's and G's Adam updates within the rule; "
+              f"the largest relative L2 error of a gradient tensor "
+              f"{ {k: f'{v:.2e}' for k, v in rel.items()} } on {card}")
+
+        # the CLI at world size 1 over NCCL
+        rng = np.random.default_rng(SEED + 11)
+        store = f"{tmp}/cli/GT.lmdb"
+        w = RecordWriter(store)
+        for vid in ("001", "002"):
+            w.add_sequence(vid, float32_to_uint8(
+                _smooth_frames(rng, DP_CLI_FRAMES, *DP_CLI_GT)))
+        w.close()
+        exp = f"{tmp}/cli/exp"
+        os.makedirs(exp)
+        yml = f"{exp}/train.yml"
+        with open(yml, "w") as f:
+            f.write(_yaml_text(_frvsr_reds_opt(
+                store, f"{tmp}/cli/none", total_iter=2, log_freq=1,
+                ckpt_freq=2, test_freq=0)))
+        t0 = time.perf_counter()
+        dist.spawn(_cli_nccl_worker, 1, exp, yml, f"{tmp}/cli.json")
+        with open(f"{tmp}/cli.json") as f:
+            cli = json.load(f)
+        print(f"CLI --mode train at world size 1: backend {cli['backend']}, "
+              f"{cli['step']} iterations in {time.perf_counter() - t0:.1f} s "
+              f"(process included), running log {cli['log']}")
+        _require(cli["backend"] == "nccl" and cli["world"] == 1
+                 and cli["step"] == 2
+                 and all(math.isfinite(v) for v in cli["log"].values())
+                 and sorted(os.listdir(f"{exp}/train/ckpt")) == [
+                     "G_iter2.npz", "state_iter2.pth"],
+                 f"the CLI's NCCL run: {cli}")
+    return {k: r0["frvsr_bf16_counts"][k] + r0["frvsr_f32_counts"][k]
+            + r0["gan_counts"][k] + r0["gan_lr_counts"][k]
+            for k in ("K2", "K3", "K3+K4", "K4")}
+
+
+def _start_weights(opt):
+    """The generator a VSRModel draws from ``opt``'s seed, on the card."""
+    import torch
+
+    from tecogan_tpu_torch.models.networks import define_generator
+
+    _, build = define_generator(opt)
+    gen = torch.Generator().manual_seed(opt["manual_seed"])
+    return build(gen, "cuda").state_dict()
+
+
 def main() -> int:
     import torch
 
@@ -3785,7 +4422,7 @@ def main() -> int:
             print(f"  ptxas: {kernel}: {line.strip()}")
 
     times = {"K1": phase_k1(card), "K1 band": phase_k1_band(card),
-             "K5": phase_k5(card)}
+             "K5": phase_k5(card), "K1 window": phase_k1_window(card)}
 
     rng = np.random.default_rng(SEED)
     params = _jax_layout_params(rng, NF, NB, SCALE)
@@ -3800,6 +4437,7 @@ def main() -> int:
     del model
     sd = state_dict_from_jax(params, NB, SCALE)
     phase_card_vs_cpu(sd, rng)
+    launches["K1 window"] = phase_sp(card, params)
 
     times.update(phase_k234(card))
     phase_assembly_warps(card)
@@ -3815,6 +4453,8 @@ def main() -> int:
         launches[key] += count
     launches["K1"] += phase_profile_mode(card)
     launches["K1"] += phase_lpips(card)
+    for key, count in phase_dp(card, params).items():
+        launches[key] += count
 
     _require("jax" not in sys.modules and "yaml" not in sys.modules,
              "jax or yaml was imported")
@@ -3825,6 +4465,10 @@ def main() -> int:
             ("K1 band", "warp_planes_band",
              "tecogan_tpu_torch/csrc/warp_planes.cu",
              "tecogan_tpu/ops/warp_pallas.py:153"),
+            ("K1 window", "warp_planes_window",
+             "tecogan_tpu_torch/csrc/warp_planes.cu",
+             "tecogan_tpu/ops/warp_pallas.py:153, "
+             "tecogan_tpu/ops/warp.py:72"),
             ("K2", "warp_rgb", "tecogan_tpu_torch/csrc/warp_planes.cu",
              "tecogan_tpu/ops/warp_pallas.py:473"),
             ("K3", "warp_dimage", "tecogan_tpu_torch/csrc/warp_vjp.cu",

@@ -25,6 +25,20 @@
 // clip(i mod band + fy, 0, band_valid-1) within its own band, so no stream
 // reads its neighbour's rows. band = 0 is the plain mode, bit for bit.
 //
+// Window mode (K1 only; row-sharded inference, the JAX package's
+// tecogan_tpu/ops/warp.py::backward_warp_window, which is plain jnp there):
+// the planes are a slab of hx rows holding global rows [x_y0, x_y0 + hx)
+// of an h_glob-row image, and the output's ho rows (the flow's) are global
+// rows [out_y0, out_y0 + ho). Row i samples at
+// clip(out_y0 + i + fy, 0, h_glob-1): coordinate, floor and weights in
+// global rows, as the plain mode computes them, and only the integer tap
+// rows are translated by -x_y0 into the slab and clipped to it (translating
+// the float first would perturb its fraction by an ulp). It is the template
+// flag kWindow of the same body, so the plain and band modes compile as
+// before; out_y0 = x_y0 = 0, h_glob = hx = ho is the plain mode bit for bit.
+// Its bytes are the plain mode's for the output's rows (the slab's extra
+// rows are not all read).
+//
 // Bound: bytes. At bf16 each pixel moves 2 flow values, 3 image values in
 // (each read once) and 3 out: 10.98 MB for K1's (1, 3, 536, 1280) frame
 // (3.28 us at 3.35 TB/s), 44.6 MB for 4 folded streams (13.3 us), and
@@ -76,17 +90,24 @@ using namespace tecogan;
 // time); each pixel's four taps lie at o00, o00 + dx, o00 + dy and
 // o00 + dy + dx of its channel. kStrided: the image and the output are
 // addressed through xs and os (K2); else they are contiguous (K1).
-template <typename TI, typename TF, int C, bool kStrided>
+// Window mode's geometry (kWindow): the slab's rows, the first output
+// row's and the slab's first row's global indices, the image's rows.
+struct Window {
+  int hx, out_y0, x_y0, h_glob;
+};
+
+template <typename TI, typename TF, int C, bool kStrided, bool kWindow>
 __global__ void __launch_bounds__(32 * kTileRows)
     warp_planes_kernel(const TI* __restrict__ planes,
                        const TF* __restrict__ flow, TI* __restrict__ out,
                        int c, int H, int W, int band, int band_valid,
-                       Strides4 fs, Strides4 xs, Strides4 os) {
+                       Strides4 fs, Strides4 xs, Strides4 os, Window win) {
   const int i = blockIdx.y * kTileRows + threadIdx.y;
   if (i >= H) return;
   const int b = blockIdx.z;
   // band mode: row i lies in the band that starts at row i - row, and
-  // samples that band's first band_valid rows only
+  // samples that band's first band_valid rows only; window mode: row i is
+  // global row out_y0 + i of an h_glob-row image
   int row = i, rows = H;
   if (band) {
     row = (int)((unsigned)(blockIdx.y * kTileRows) % (unsigned)band) +
@@ -94,17 +115,24 @@ __global__ void __launch_bounds__(32 * kTileRows)
     while (row >= band) row -= band;
     rows = band_valid;
   }
+  if constexpr (kWindow) {
+    row = win.out_y0 + i;
+    rows = win.h_glob;
+  }
   // element strides within an image, 32-bit (the wrappers check the
-  // largest offset), and the images' 64-bit bases
+  // largest offset), and the images' 64-bit bases; in window mode the
+  // input planes have the slab's hx rows, the output's the flow's H
   const int plane = H * W;
-  const int x1 = kStrided ? (int)xs.s1 : plane;
+  const int in_plane = kWindow ? win.hx * W : plane;
+  const int x1 = kStrided ? (int)xs.s1 : in_plane;
   const int x2 = kStrided ? (int)xs.s2 : W;
   const int x3 = kStrided ? (int)xs.s3 : 1;
   const int o1 = kStrided ? (int)os.s1 : plane;
   const int o2 = kStrided ? (int)os.s2 : W;
   const int o3 = kStrided ? (int)os.s3 : 1;
   const int64_t dense = (int64_t)b * c * plane;
-  const TI* src = planes + (kStrided ? b * xs.s0 : dense);
+  const TI* src =
+      planes + (kStrided ? b * xs.s0 : (int64_t)b * c * in_plane);
   TI* dst = out + (kStrided ? b * os.s0 : dense) + i * o2;
   // the flow row in 64 bits once; offsets within it are 32-bit
   const TF* f = flow + b * fs.s0 + i * fs.s1;
@@ -131,9 +159,17 @@ __global__ void __launch_bounds__(32 * kTileRows)
     w01[k] = __fmul_rn(t.wx, wy0);
     w10[k] = __fmul_rn(wx0, t.wy);
     w11[k] = __fmul_rn(t.wx, t.wy);
-    o00[k] = (i - row + t.y0) * x2 + t.x0 * x3;
+    if constexpr (kWindow) {
+      // the clamped global tap rows, translated into the slab
+      const int y0 = min(max(t.y0 - win.x_y0, 0), win.hx - 1);
+      const int y1 = min(max(t.y1 - win.x_y0, 0), win.hx - 1);
+      o00[k] = y0 * x2 + t.x0 * x3;
+      dy[k] = (y1 - y0) * x2;
+    } else {
+      o00[k] = (i - row + t.y0) * x2 + t.x0 * x3;
+      dy[k] = (t.y1 - t.y0) * x2;
+    }
     dx[k] = (t.x1 - t.x0) * x3;
-    dy[k] = (t.y1 - t.y0) * x2;
   }
   // top + bottom, stored where the column exists
   auto finish = [&](TI* d, int k, const float* v) {
@@ -170,30 +206,32 @@ __global__ void __launch_bounds__(32 * kTileRows)
   }
 }
 
-template <typename TI, typename TF, int C, bool kStrided>
+template <typename TI, typename TF, int C, bool kStrided, bool kWindow>
 int run(const int64_t* a, int band, int band_valid, Strides4 fs, Strides4 xs,
-        Strides4 os, cudaStream_t stream) {
+        Strides4 os, Window win, cudaStream_t stream) {
   const int n = (int)a[3], c = (int)a[4], H = (int)a[5], W = (int)a[6];
   constexpr int kTileW = 32 * kTileSteps;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileRows - 1) / kTileRows,
                   n);
-  warp_planes_kernel<TI, TF, C, kStrided>
+  warp_planes_kernel<TI, TF, C, kStrided, kWindow>
       <<<grid, dim3(32, kTileRows), 0, stream>>>(
           arg_ptr<const TI>(a, 0), arg_ptr<const TF>(a, 1), arg_ptr<TI>(a, 2),
-          c, H, W, band, band_valid, fs, xs, os);
+          c, H, W, band, band_valid, fs, xs, os, win);
   return (int)cudaGetLastError();
 }
 
 // RGB (every path) takes the kernel with the channels unrolled; any other
 // count loops over them
-template <typename TI, typename TF, bool kStrided>
+template <typename TI, typename TF, bool kStrided, bool kWindow = false>
 int run_any_c(const int64_t* a, int band, int band_valid, Strides4 fs,
-              Strides4 xs, Strides4 os, cudaStream_t stream) {
+              Strides4 xs, Strides4 os, cudaStream_t stream,
+              Window win = Window{}) {
   if (a[3] * a[4] * a[5] * a[6] == 0) return 0;
-  return a[4] == 3 ? run<TI, TF, 3, kStrided>(a, band, band_valid, fs, xs,
-                                              os, stream)
-                   : run<TI, TF, 0, kStrided>(a, band, band_valid, fs, xs,
-                                              os, stream);
+  return a[4] == 3
+             ? run<TI, TF, 3, kStrided, kWindow>(a, band, band_valid, fs, xs,
+                                                 os, win, stream)
+             : run<TI, TF, 0, kStrided, kWindow>(a, band, band_valid, fs, xs,
+                                                 os, win, stream);
 }
 
 // K1: (planes, flow, out, n, c, H, W, band, band_valid, flow strides,
@@ -203,6 +241,16 @@ int launch_planes(const int64_t* a) {
   return run_any_c<TI, TF, false>(a, (int)a[7], (int)a[8],
                                   strides_from(a + 9), Strides4{},
                                   Strides4{}, arg_ptr<CUstream_st>(a, 13));
+}
+
+// K1's window mode: (planes, flow, out, n, c, ho, W, hx, out_y0, x_y0,
+// h_glob, flow strides, stream)
+template <typename TI, typename TF>
+int launch_window(const int64_t* a) {
+  const Window win{(int)a[7], (int)a[8], (int)a[9], (int)a[10]};
+  return run_any_c<TI, TF, false, true>(a, 0, 0, strides_from(a + 11),
+                                        Strides4{}, Strides4{},
+                                        arg_ptr<CUstream_st>(a, 15), win);
 }
 
 // K2: (x, flow, out, n, c, H, W, the image's, the output's and the flow's
@@ -223,7 +271,10 @@ int launch_rgb(const int64_t* a) {
 // order, stream); planes and out are contiguous (n, c, H, W); band = 0
 // warps each plane as one image, band > 0 (H a multiple of band) as H / band
 // independent bands of band rows, each clamped to its first band_valid
-// rows. K2, tecogan_warp_rgb_*: (x, flow, out, n, c, H, W, 12 element
+// rows. K1's window mode, tecogan_warp_window_*: (planes, flow, out, n, c,
+// ho, W, hx, out_y0, x_y0, h_glob, the flow's element strides, stream);
+// planes (n, c, hx, W) and out (n, c, ho, W) are contiguous. K2,
+// tecogan_warp_rgb_*: (x, flow, out, n, c, H, W, 12 element
 // strides: the image's and the output's in (n, c, H, W) order, then the
 // flow's in (n, H, W, 2) order, stream). Flow strides are in elements, so an
 // (n, H, W, 2) tensor and the (n, H, W, 2) view of an NCHW (n, 2, H, W)
@@ -233,6 +284,10 @@ int launch_rgb(const int64_t* a) {
   extern "C" int NAME(const int64_t* args) { \
     return launch_planes<TI, TF>(args);      \
   }
+#define TECOGAN_WARP_WINDOW_ENTRY(NAME, TI, TF) \
+  extern "C" int NAME(const int64_t* args) {  \
+    return launch_window<TI, TF>(args);       \
+  }
 #define TECOGAN_WARP_RGB_ENTRY(NAME, TI, TF) \
   extern "C" int NAME(const int64_t* args) { return launch_rgb<TI, TF>(args); }
 
@@ -240,6 +295,11 @@ TECOGAN_WARP_ENTRY(tecogan_warp_planes_f32_f32, float, float)
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_f32_bf16, float, __nv_bfloat16)
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_bf16_f32, __nv_bfloat16, float)
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+TECOGAN_WARP_WINDOW_ENTRY(tecogan_warp_window_f32_f32, float, float)
+TECOGAN_WARP_WINDOW_ENTRY(tecogan_warp_window_f32_bf16, float, __nv_bfloat16)
+TECOGAN_WARP_WINDOW_ENTRY(tecogan_warp_window_bf16_f32, __nv_bfloat16, float)
+TECOGAN_WARP_WINDOW_ENTRY(tecogan_warp_window_bf16_bf16, __nv_bfloat16,
+                          __nv_bfloat16)
 TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_f32_f32, float, float)
 TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_f32_bf16, float, __nv_bfloat16)
 TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_bf16_f32, __nv_bfloat16, float)

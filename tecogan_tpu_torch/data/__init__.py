@@ -1,5 +1,5 @@
-"""Loader factory (port of ``tecogan_tpu/data/__init__.py``, one process on
-one device; reference contract: `codes/data/__init__.py:11-95`)."""
+"""Loader factory (port of ``tecogan_tpu/data/__init__.py``; reference
+contract: `codes/data/__init__.py:11-95`)."""
 
 from .datasets import (
     PairedClipDataset,
@@ -27,11 +27,13 @@ __all__ = [
 def create_dataloader(opt, phase: str, idx: str, device=None):
     """Build a loader/dataset per the YAML dataset block.
 
-    For training: a TrainLoader of uint8 batches of
-    ``batch_size_per_gpu`` clips (the step normalises on the device), or,
-    with ``device_resident: true``, a DeviceResidentLoader whose corpus
-    lives on ``device`` (the model's) and whose batches are born there.
-    More than one device in ``opt['device_ids']`` raises.
+    For training: a TrainLoader of uint8 batches (the step normalises on
+    the device), or, with ``device_resident: true``, a DeviceResidentLoader
+    whose corpus lives on ``device`` (the model's) and whose batches are
+    born there. The global batch is ``batch_size_per_gpu`` times the
+    process group's size (``parallel.dist``), and each rank gets its
+    ``batch_size_per_gpu`` rows of it. Several devices in one process
+    raise: training takes one process per device.
     """
     data_opt = opt["dataset"][idx]
     degradation = opt["dataset"]["degradation"]["type"]
@@ -39,10 +41,13 @@ def create_dataloader(opt, phase: str, idx: str, device=None):
     if phase == "train":
         import numpy as np
 
-        if len(opt.get("device_ids") or []) > 1:
-            raise NotImplementedError(
-                f"training on several devices is not ported yet; got "
-                f"device_ids {opt['device_ids']}")
+        from ..parallel import dist
+
+        if dist.world() == 1 and len(opt.get("device_ids") or []) > 1:
+            raise ValueError(
+                f"training on device_ids {opt['device_ids']} takes one "
+                f"process per device: launch through tecogan_tpu_torch.main "
+                f"(--gpu_ids spawns them) or torchrun")
         common = dict(
             tempo_extent=opt["train"]["tempo_extent"],
             moving_first_frame=opt["train"].get("moving_first_frame", False),
@@ -71,18 +76,19 @@ def create_dataloader(opt, phase: str, idx: str, device=None):
             raise ValueError(f"Unrecognized degradation type: {degradation}")
 
         seed = opt.get("manual_seed", 2021)
+        ranks = dict(rank=dist.rank(), world=dist.world())
+        batch = data_opt["batch_size_per_gpu"] * dist.world()
         if data_opt.get("device_resident", False):
             if device is None:
                 raise ValueError("device_resident: true needs the model's "
                                  "device")
             from .device_data import DeviceResidentLoader
 
-            return DeviceResidentLoader(
-                dataset, batch_size=data_opt["batch_size_per_gpu"],
-                device=device, seed=seed)
+            return DeviceResidentLoader(dataset, batch_size=batch,
+                                        device=device, seed=seed, **ranks)
         return TrainLoader(
-            dataset, batch_size=data_opt["batch_size_per_gpu"], seed=seed,
-            num_workers=data_opt.get("num_worker_per_gpu", 3))
+            dataset, batch_size=batch, seed=seed,
+            num_workers=data_opt.get("num_worker_per_gpu", 3), **ranks)
 
     if phase == "test":
         return create_test_dataset(opt, idx)

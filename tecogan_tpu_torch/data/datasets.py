@@ -30,7 +30,7 @@ import os.path as osp
 import numpy as np
 
 from ..utils.paths import retrieve_files
-from ..utils.png import read_png
+from ..utils.png import read_image
 from .records import make_key, open_store, parse_key
 
 __all__ = [
@@ -319,7 +319,7 @@ def _select_keys(root, filter_file=None, filter_list=None):
 
 
 def _read_seq(seq_dir, as_float):
-    seq = np.stack([read_png(p) for p in retrieve_files(seq_dir)])
+    seq = np.stack([read_image(p) for p in retrieve_files(seq_dir)])
     if as_float:
         seq = seq.astype(np.float32) / 255.0
     return seq

@@ -1,6 +1,5 @@
 """Device-resident training data: upload the corpus once, stream only plans
-(port of ``tecogan_tpu/data/device_data.py`` lines 1-234, one device, no
-``mesh=`` path).
+(port of ``tecogan_tpu/data/device_data.py`` lines 1-234).
 
 The training batch is the only recurring host-to-device transfer of the
 train loop (uint8 GT crops). For corpora that fit the card's memory, the
@@ -14,6 +13,12 @@ consumes the same plan, so the batches are bit-identical to the host
 loader's. The spatial augmentation (flip none/h/w x rot90 k) is applied
 through 12 precomputed index maps, so crop, flip and rotation are one
 gather per sample. This is plain PyTorch indexing, not a kernel.
+
+Data parallelism, as the JAX ``mesh=`` path
+(``tecogan_tpu/data/device_data.py:134-167``): every rank keeps the whole
+corpus on its own card and gathers only its rows of each global batch
+(``TrainLoader``'s ``rank``/``world``); the global batch must divide over
+the ranks.
 """
 
 from __future__ import annotations
@@ -93,8 +98,10 @@ class DeviceResidentLoader(TrainLoader):
     plans (int32, ~100 B a sample) instead of the crops.
     """
 
-    def __init__(self, dataset, batch_size: int, device, seed: int = 0):
-        super().__init__(dataset, batch_size, seed=seed, num_workers=1)
+    def __init__(self, dataset, batch_size: int, device, seed: int = 0,
+                 rank: int = 0, world: int = 1):
+        super().__init__(dataset, batch_size, seed=seed, num_workers=1,
+                         rank=rank, world=world)
         self.device = torch.device(device)
         # paired (BI) datasets carry two stores; unpaired (BD) one
         if hasattr(dataset, "pairs"):
@@ -137,7 +144,7 @@ class DeviceResidentLoader(TrainLoader):
         n = len(self.dataset)
         order = np.random.default_rng((self.seed, epoch_idx)).permutation(n)
         for b in range(start_batch, len(self)):
-            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            idxs = self._rows(order, b)
             plans = []
             for i in idxs:
                 rng = np.random.default_rng((self.seed, epoch_idx, int(i)))

@@ -1,13 +1,20 @@
 """Training loader: epoch-shuffled, thread-prefetched host batching (copied
 from ``tecogan_tpu/data/loader.py`` lines 1-136).
 
-Replaces torch's DataLoader + DistributedSampler (`codes/data/__init__.py`)
-for one process on one device. Worker threads assemble clips ahead of the
-step (the native assembler releases the GIL inside ctypes); a bounded
-queue keeps a configurable number of ready batches.
+Replaces torch's DataLoader + DistributedSampler (`codes/data/__init__.py`).
+Worker threads assemble clips ahead of the step (the native assembler
+releases the GIL inside ctypes); a bounded queue keeps a configurable
+number of ready batches.
 
 Determinism: sample i of epoch e uses np.random.Generator seeded with
 (seed, e, i): the stream is independent of worker count and scheduling.
+
+Data parallelism: ``batch_size`` is the global batch, as in the JAX
+package, whose one process assembles it for the whole mesh. In a run of
+``world`` processes rank r assembles only its rows of each global batch,
+the block ``[r * b, (r + 1) * b)`` with ``b = batch_size / world``; those
+rows are the global batch's rows, bit for bit, since every sample's stream
+is keyed by its dataset index.
 """
 
 from __future__ import annotations
@@ -17,12 +24,16 @@ import threading
 
 import numpy as np
 
+from ..parallel.dist import shard_rows
+
 __all__ = ["TrainLoader"]
 
 
 class TrainLoader:
     def __init__(self, dataset, batch_size: int, seed: int = 0,
-                 num_workers: int = 4, prefetch: int = 4, drop_last=True):
+                 num_workers: int = 4, prefetch: int = 4, drop_last=True,
+                 rank: int = 0, world: int = 1):
+        self._shard = shard_rows(batch_size, rank, world)
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -44,10 +55,8 @@ class TrainLoader:
         n = len(self.dataset)
         order = np.random.default_rng((self.seed, epoch_idx)).permutation(n)
         n_batches = len(self)
-        batch_idx = [
-            order[i * self.batch_size:(i + 1) * self.batch_size]
-            for i in range(start_batch, n_batches)
-        ]
+        batch_idx = [self._rows(order, i)
+                     for i in range(start_batch, n_batches)]
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -130,6 +139,11 @@ class TrainLoader:
                 yield item
         finally:
             stop.set()
+
+    def _rows(self, order, i: int):
+        """This rank's dataset indices of global batch ``i`` of ``order``."""
+        return order[i * self.batch_size:(i + 1) * self.batch_size][
+            self._shard]
 
     def __iter__(self):
         return self.epoch(0)

@@ -1,7 +1,9 @@
 """Entry point, train and test modes (port of ``tecogan_tpu/main.py``)::
 
     python -m tecogan_tpu_torch.main --exp_dir E --mode train --opt E/train.yml \
-        [--gpu_ids 0]
+        [--gpu_ids 0 | --gpu_ids 0,1]
+    torchrun --nproc_per_node N -m tecogan_tpu_torch.main --exp_dir E \
+        --mode train --opt E/train.yml
     python -m tecogan_tpu_torch.main --exp_dir E --mode test --opt E/test.yml \
         [--gpu_ids 0]
     python -m tecogan_tpu_torch.main --exp_dir E --mode profile \
@@ -33,7 +35,20 @@ module for one step at ``--lr_size`` (the JAX CLI's lines and numbers),
 ``torch.profiler`` chrome trace of them.
 
 All three run on ``cuda:0`` unless ``--gpu_ids -1`` asks for the CPU;
-without CUDA they raise. One process on one device only.
+without CUDA they raise.
+
+Data parallelism (the JAX package's dp mesh, ``--gpu_ids 0,1``) runs one
+process per device over ``torch.distributed``: given several ids and no
+torchrun environment, ``main`` builds the kernels once and spawns one
+worker per id (rank = position in the list, device ``cuda:<id>``); under
+torchrun it joins the group it names (rank r on ``cuda:LOCAL_RANK``, or on
+``cuda:<ids[LOCAL_RANK]>`` with several ids). Training takes the global
+batch of ``batch_size_per_gpu`` times the ranks, each rank its rows; rank
+0 alone logs, writes checkpoints, the emergency save and the validation
+JSON. Test mode and validation round-robin the sequences over the ranks
+and merge their metrics before rank 0 writes them. Test mode with
+``test.spatial_partition: true`` stays one process, and shards each
+stream's rows over the listed devices.
 """
 
 from __future__ import annotations
@@ -43,16 +58,19 @@ import logging
 import math
 import os
 import os.path as osp
+import sys
 import time
 
 import numpy as np
 import torch
 
+from . import nn
 from .data import create_dataloader, create_test_dataset
 from .metrics import create_metric_calculator
 from .metrics.model_summary import flop_count, profile_frnet
 from .models import define_model
 from .ops.color import save_sequence
+from .parallel import dist
 from .utils import config as config_utils
 from .utils import paths as path_utils
 from .utils.logging_utils import (log_info, log_warning, print_options,
@@ -63,7 +81,13 @@ def _run_test_sets(opt, model, model_idx):
     """Every test set through ``model``; returns one record per sequence
     with its frame count, the host seconds it spent reading, inferring
     (degradation and the copy back included), writing and scoring, and
-    its metrics (the sequence's mean of each)."""
+    its metrics (the sequence's mean of each).
+
+    In a data-parallel run rank r takes sequences r, r + world, ... (the
+    reference's round-robin, `codes/main.py:93,169`) and returns their
+    records; the per-sequence averages of every rank are merged before
+    rank 0 saves or displays them."""
+    rank, world = dist.rank(), dist.world()
     records = []
     for dataset_idx in sorted(opt["dataset"].keys()):
         if "test" not in dataset_idx:
@@ -84,7 +108,7 @@ def _run_test_sets(opt, model, model_idx):
             metric_calculator.reset()
 
         ds_records = []
-        for idx in range(len(test_dataset)):
+        for idx in range(rank, len(test_dataset), world):
             t0 = time.perf_counter()
             data = test_dataset[idx]
             t1 = time.perf_counter()
@@ -115,14 +139,27 @@ def _run_test_sets(opt, model, model_idx):
             for rec in ds_records:
                 rec["metrics"] = metric_calculator.avg_metric_dict[
                     rec["seq_idx"]]
-            if opt["test"].get("save_json"):
+            if world > 1:
+                _allgather_metrics(metric_calculator)
+            if rank == 0 and opt["test"].get("save_json"):
                 json_path = osp.join(
                     opt["test"]["json_dir"], f"{ds_name}_avg.json")
                 metric_calculator.save(model_idx, json_path, override=True)
-            else:
+            elif rank == 0:
                 metric_calculator.display()
         records += ds_records
     return records
+
+
+def _allgather_metrics(metric_calculator):
+    """Merge every rank's per-sequence averages into each rank's
+    ``avg_metric_dict``, sorted by sequence (``tecogan_tpu/main.py:83-100``;
+    ``all_gather_object`` pickles dicts of any size, so the JAX package's
+    two-phase size exchange is not needed)."""
+    merged = {}
+    for part in dist.allgather_object(metric_calculator.avg_metric_dict):
+        merged.update(part)
+    metric_calculator.avg_metric_dict = dict(sorted(merged.items()))
 
 
 def _batches(loader, start_epoch, total_epoch, skip_in_epoch):
@@ -139,8 +176,8 @@ def _batches(loader, start_epoch, total_epoch, skip_in_epoch):
 
 
 def train(opt):
-    """The training loop of ``tecogan_tpu/main.py:108-217`` on one device.
-    Returns the model."""
+    """The training loop of ``tecogan_tpu/main.py:108-217``, on one device
+    or one rank of a data-parallel group. Returns the model."""
     log_info(f'{20 * "-"} Configurations {20 * "-"}')
     print_options(opt)
 
@@ -164,6 +201,8 @@ def train(opt):
     model.state, resumed = model.try_resume(model.state)
     if resumed:
         start_iter = int(model.state["step"])
+        # every rank read the same file; rank 0's copy makes them one
+        model.sync_replicas(model.state)
 
     # Resume continues the data stream where the checkpoint left off, not
     # just the step counter: restarting at epoch 0 would replay the samples
@@ -201,9 +240,11 @@ def train(opt):
 
                 # always checkpoint the final iteration even when
                 # ckpt_freq does not divide total_iter; ckpt_freq: 0 means
-                # no checkpoints at all
-                if ckpt_freq > 0 and (curr_iter == total_iter
-                                      or curr_iter % ckpt_freq == 0):
+                # no checkpoints at all; rank 0 alone writes (the replicas
+                # are identical, and writers would race on one path)
+                if ckpt_freq > 0 and dist.is_main() and (
+                        curr_iter == total_iter
+                        or curr_iter % ckpt_freq == 0):
                     model.save(curr_iter)
                     model.save_training_state(model.state, curr_iter)
 
@@ -211,14 +252,14 @@ def train(opt):
                     _run_test_sets(opt, model, f"G_iter{curr_iter}")
     except BaseException:
         # persist the full training state so auto-resume continues from
-        # here, unless the step itself failed: its in-place updates may be
-        # torn, so that state must not be resumed from
-        if in_step:
+        # here (rank 0 alone), unless the step itself failed: its in-place
+        # updates may be torn, so that state must not be resumed from
+        if in_step and dist.is_main():
             log_warning(
                 "Emergency save impossible: the failed training step may "
                 "have updated some weights or optimizer moments and not "
                 "others — resume from the last periodic checkpoint")
-        else:
+        elif dist.is_main():
             try:
                 model.save_training_state(model.state, trained_iter)
                 log_warning(f"Emergency training state saved at iter "
@@ -266,7 +307,6 @@ def profile(opt, lr_size: str, test_speed: bool = False) -> dict:
     timed on the host clock up to a synchronise. The generator's weights
     are drawn from a seed and its compute dtype is the configuration's.
     Returns the numbers it prints."""
-    from .models.base import select_device
     from .models.networks import define_generator
     from .models.networks.frnet import _compute_module
 
@@ -277,7 +317,7 @@ def profile(opt, lr_size: str, test_speed: bool = False) -> dict:
     msg += (f"\nResolution: {lr_size} -> "
             f"{c}x{h * scale}x{w * scale} ({scale}x SR)")
 
-    device = select_device(opt)
+    device = nn.select_device(opt)
     cfg, build = define_generator(opt)
     net = _compute_module(build(torch.Generator().manual_seed(0), device),
                           cfg.dtype)
@@ -337,15 +377,46 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _row_sharded(opt) -> bool:
+    """Test mode with ``test.spatial_partition``: one process over all the
+    listed devices."""
+    return (opt["mode"] == "test"
+            and opt.get("test", {}).get("spatial_partition", False))
+
+
 def main(argv=None):
     """Returns the trained model in train mode, test mode's per-sequence
-    records in test mode, and profile's numbers in profile mode."""
+    records in test mode, and profile's numbers in profile mode; None in
+    the process that spawned data-parallel workers."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = config_utils.parse_args(argv)
     if args.mode not in ("train", "test", "profile"):
         raise ValueError(
             f"Unrecognized mode: {args.mode} (train|test|profile)")
     opt = config_utils.parse_configs(args)
+    ids = opt["device_ids"]
+    if (not dist.launched() and len(ids) > 1 and args.mode != "profile"
+            and not _row_sharded(opt)):
+        # --gpu_ids 0,1: one worker per id; the kernels are built here
+        # once, not once a rank
+        nn.select_devices(opt)  # an id out of range raises here
+        from . import kernel_build
+
+        kernel_build.build()
+        dist.spawn(main, len(ids), argv)
+        return None
     setup_logger("base")
+    if dist.launched():
+        device = dist.rank_device(ids)
+        dist.init_distributed(device)
+        if device.type == "cuda":
+            if dist.is_main():
+                from . import kernel_build
+
+                kernel_build.build()
+            dist.barrier()
+        if not dist.is_main():
+            logging.getLogger("base").setLevel(logging.WARNING)
     path_utils.setup_paths(opt, args.mode)
     if args.mode == "profile":
         return profile(opt, args.lr_size, args.test_speed)
@@ -353,4 +424,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        dist.shutdown()

@@ -2,6 +2,12 @@
 selection, training and inference data staging, temporal front padding,
 the running log and checkpoints.
 
+A model lives on one device. In a data-parallel run that is this rank's
+(``parallel.dist``); in one process ``device_ids`` may list several, which
+only row-sharded inference (``test.spatial_partition``) spreads over:
+training on several devices takes one process each (``main.py`` spawns
+them for ``--gpu_ids 0,1``, or torchrun starts them).
+
 Checkpoints: generator weights go to ``G_iter{N}.npz`` in the JAX
 package's layout; the full training state (weights, Adam state, step,
 running log; for TecoGAN also the discriminator, its Adam state and its
@@ -18,8 +24,9 @@ import os.path as osp
 import numpy as np
 import torch
 
-from ..nn import inference_numerics, select_device
+from ..nn import inference_numerics, select_devices
 from ..ops.degrade import downsample_bd
+from ..parallel import dist
 from ..utils import ckpt as ckpt_io
 from ..utils.logging_utils import format_train_msg
 
@@ -30,8 +37,15 @@ class BaseVSRModel:
     def __init__(self, opt, device: torch.device | None = None):
         self.opt = opt
         self.scale = opt["scale"]
-        self.device = select_device(opt) if device is None else device
+        self.devices = (select_devices(opt) if device is None
+                        else [torch.device(device)])
+        self.device = self.devices[0]
         self.is_train = opt.get("is_train", False)
+        if self.is_train and len(self.devices) > 1:
+            raise ValueError(
+                f"training on device_ids {opt['device_ids']} takes one "
+                f"process per device: launch through tecogan_tpu_torch.main "
+                f"(--gpu_ids spawns them) or torchrun")
         self.log_decay = opt.get("logger", {}).get("decay", 0.99)
         if self.is_train:
             self.ckpt_dir = opt["train"]["ckpt_dir"]
@@ -116,6 +130,14 @@ class BaseVSRModel:
 
     # the nets a training state may hold, each with its optimizer
     _NETS = (("g", "opt_g"), ("d", "opt_d"))
+
+    def sync_replicas(self, state):
+        """Rank 0's weights (and BatchNorm stats) in every net of ``state``
+        on every rank: replicas start identical whatever each built or
+        loaded. A no-op in one process."""
+        for net, _ in self._NETS:
+            if net in state:
+                dist.broadcast_module(state[net])
 
     def save_training_state(self, state, current_iter):
         """Full-state checkpoint: weights (with the discriminator's

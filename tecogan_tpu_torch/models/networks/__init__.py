@@ -5,6 +5,7 @@ from .discriminators import (DTrunk, SNetConfig, STNetConfig, build_d_input,
 from .fnet import FNet
 from .frnet import (FRNet, FRNetConfig, forward_sequence, infer_sequence,
                     infer_sequence_batch)
+from .frnet_sp import infer_sequence_sp
 from .srnet import SRNet
 from .vgg import VGG19
 
@@ -75,4 +76,5 @@ __all__ = [
     "forward_sequence",
     "infer_sequence",
     "infer_sequence_batch",
+    "infer_sequence_sp",
 ]

@@ -22,6 +22,16 @@ own BatchNorm statistics) and updates first, and only when the adaptive
 vote passes; the generator's losses are then taken against the updated
 discriminator, whose third forward moves the BatchNorm running stats a
 third time.
+
+In a data-parallel run (``parallel.dist``, one process per device) each
+rank runs the step on its rows of the global batch, and the step keeps the
+JAX package's global semantics: each backward's gradients are averaged
+over the ranks before the optimizer step (one all-reduce of a flat buffer,
+``dist.average_gradients``), D's BatchNorm takes the global batch's
+statistics (``nn.batch_norm``), the vote reads the distance of the
+all-reduced means, so every rank takes the same branch, and every logged
+value is the global mean before the running log's decay. In one process
+none of this runs.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from torch.func import functional_call
 from ..nn import cast_params
 from ..ops.degrade import bd_border_size, downsample_bd
 from ..ops.warp_vjp import backward_warp_diff
+from ..parallel import dist
 from .losses import define_criterion
 from .networks import (STNetConfig, build_d_input, build_flow_merge,
                        forward_sequence)
@@ -140,6 +151,17 @@ def _warp_loss(crit, out):
     return crit(lr_warp, out["lr_curr"].permute(0, 3, 1, 2))
 
 
+def _global_logs(logs: dict) -> dict:
+    """Each 0-d log value as its mean over the ranks, in one all-reduce
+    (the values as they are in one process)."""
+    if dist.world() == 1:
+        return logs
+    keys = list(logs)
+    means = dist.all_reduce_mean(torch.stack([logs[k].float()
+                                              for k in keys]))
+    return dict(zip(keys, means.unbind()))
+
+
 def _ema_update(running, current, decay: float, step: int):
     """EMA of the log dict on the device (reference
     `base_model.py:170-183`); step 0 takes the current values."""
@@ -195,6 +217,7 @@ def frvsr_train_step(state, batch, *, cfg_g, tcfg: TrainConfig, sched_g,
 
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    dist.average_gradients(net.parameters())
     step = state["step"]
     for group in opt.param_groups:
         group["lr"] = sched_g(step)
@@ -204,6 +227,7 @@ def frvsr_train_step(state, batch, *, cfg_g, tcfg: TrainConfig, sched_g,
     for k in FRVSR_LOG_KEYS:
         logs.setdefault(k, torch.zeros((), dtype=torch.float32,
                                        device=l_pix.device))
+    logs = _global_logs(logs)
     state["step"] = step + 1
     state["running_log"] = _ema_update(state["running_log"], logs,
                                        log_decay, step)
@@ -331,14 +355,18 @@ def tecogan_train_step(state, batch, *, cfg_g, cfg_d, tcfg: TrainConfig,
     fake_logits, _ = functional_call(net_d, pd, (x_fake_g.detach(),))
     loss_d = gan_crit(real_logits, True) + gan_crit(fake_logits, False)
     with torch.no_grad():
+        # the vote reads the global means, so every rank takes one branch
         rl32, fl32 = real_logits.float(), fake_logits.float()
-        distance = (torch.log(torch.sigmoid(rl32) + 1e-8).mean()
-                    - torch.log(torch.sigmoid(fl32) + 1e-8).mean())
+        logged = dist.all_reduce_mean(torch.stack([
+            torch.log(torch.sigmoid(rl32) + 1e-8).mean(),
+            torch.log(torch.sigmoid(fl32) + 1e-8).mean()]))
+        distance = logged[0] - logged[1]
     upd_d = (tcfg.update_policy != "adaptive"
              or bool(distance < tcfg.update_threshold))
     if upd_d:
         opt_d.zero_grad(set_to_none=True)
         loss_d.backward()
+        dist.average_gradients(net_d.parameters())
         for group in opt_d.param_groups:
             group["lr"] = sched_d(step)
         opt_d.step()
@@ -408,6 +436,7 @@ def tecogan_train_step(state, batch, *, cfg_g, cfg_d, tcfg: TrainConfig,
 
     opt_g.zero_grad(set_to_none=True)
     loss.backward()
+    dist.average_gradients(net_g.parameters())
     for group in opt_g.param_groups:
         group["lr"] = sched_g(step)
     opt_g.step()
@@ -426,6 +455,7 @@ def tecogan_train_step(state, batch, *, cfg_g, cfg_d, tcfg: TrainConfig,
     for k in TECOGAN_LOG_KEYS:
         logs.setdefault(k, torch.zeros((), dtype=torch.float32,
                                        device=hr.device))
+    logs = _global_logs(logs)
     state["step"] = step + 1
     state["running_log"] = _ema_update(state["running_log"], logs,
                                        log_decay, step)

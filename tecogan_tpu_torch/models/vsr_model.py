@@ -1,6 +1,9 @@
 """VSRModel — FRVSR trainer and inferencer (port of
-``tecogan_tpu/models/vsr_model.py``). One device; spatial partitioning and
-multi-process runs are not ported yet and raise."""
+``tecogan_tpu/models/vsr_model.py``). Training runs on one device a
+process (data parallelism: ``parallel.dist``, the step's reductions in
+``steps.py``); inference on one device or, under
+``test.spatial_partition: true``, with one stream's rows sharded over the
+model's devices (``networks.infer_sequence_sp``)."""
 
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import torch
 from ..utils import ckpt as ckpt_io
 from .base import BaseVSRModel, inference_numerics
 from .convert import jax_from_state_dict
-from .networks import define_generator, infer_sequence
+from ..parallel import dist
+from .networks import define_generator, infer_sequence, infer_sequence_sp
 from .schedules import make_adam
 from .steps import frvsr_init_state, frvsr_train_step, make_train_config
 
@@ -22,14 +26,6 @@ _log = logging.getLogger(__name__)
 
 class VSRModel(BaseVSRModel):
     def __init__(self, opt, device: torch.device | None = None):
-        if opt.get("test", {}).get("spatial_partition", False):
-            raise NotImplementedError(
-                "test.spatial_partition is not ported yet")
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "multi-process runs are not ported yet")
         super().__init__(opt, device)
         self.cfg_g, build = define_generator(opt)
         gen = torch.Generator().manual_seed(opt.get("manual_seed", 2021))
@@ -50,6 +46,7 @@ class VSRModel(BaseVSRModel):
         opt_g, self.sched_g = make_adam(opt["train"]["generator"],
                                         self.net_g.parameters())
         self.state = frvsr_init_state(self.net_g, opt_g)
+        self.sync_replicas(self.state)
         self._train_step = functools.partial(
             frvsr_train_step, cfg_g=self.cfg_g, tcfg=self.tcfg,
             sched_g=self.sched_g, log_decay=self.log_decay)
@@ -75,17 +72,44 @@ class VSRModel(BaseVSRModel):
         return {"lr_G": float(self.sched_g(self.state["step"]))}
 
     # ------------------------------------------------------------------ infer
+    def sp_devices(self, h: int) -> list | None:
+        """The devices to shard an h-row LR frame's rows over, or None.
+
+        Opt-in via ``test.spatial_partition: true``
+        (``tecogan_tpu/models/vsr_model.py:66-91``): the largest k of the
+        model's devices with ``h % k == 0`` and ``(h / k) % 8 == 0``; with
+        none, a log line and the one-device path. Single-process only: a
+        data-parallel test run gives each rank whole sequences.
+        """
+        if not self.opt.get("test", {}).get("spatial_partition", False):
+            return None
+        if dist.world() > 1 or len(self.devices) < 2:
+            return None
+        for k in range(len(self.devices), 1, -1):
+            if h % k == 0 and (h // k) % 8 == 0:
+                return self.devices[:k]
+        _log.info("spatial_partition: no device count in [2, %d] divides "
+                  "h=%d into /8 row blocks; using one device",
+                  len(self.devices), h)
+        return None
+
     def infer(self, lr_data, chunk: int = 16) -> np.ndarray:
         """LR sequence (t, h, w, c) float -> SR uint8 (t, sh, sw, c).
 
         Front-pads the sequence to warm up the recurrent state, then trims
         (`vsr_model.py:97-113`). A float32 generator runs with TF32 off and
-        cuDNN's deterministic algorithms (``inference_numerics``).
+        cuDNN's deterministic algorithms (``inference_numerics``). Under
+        ``test.spatial_partition`` the rows are sharded (``sp_devices``).
         """
         lr = torch.as_tensor(lr_data, device=self.device)
         lr, n_pad = self.pad_sequence(lr)
+        devices = self.sp_devices(lr.shape[1])
         with inference_numerics(self.cfg_g.compute_dtype):
-            hr = infer_sequence(self.net_g, lr, self.cfg_g, chunk)
+            if devices is not None:
+                hr = infer_sequence_sp(self.net_g, lr, self.cfg_g, devices,
+                                       chunk)
+            else:
+                hr = infer_sequence(self.net_g, lr, self.cfg_g, chunk)
             return hr[n_pad:].cpu().numpy()
 
     # ------------------------------------------------------------------- save

@@ -53,6 +53,7 @@ class VSRGANModel(VSRModel):
         opt_d, self.sched_d = make_adam(opt["train"]["discriminator"],
                                         self.net_d.parameters())
         self.state = tecogan_init_state(self.net_g, self.net_d, opt_g, opt_d)
+        self.sync_replicas(self.state)
         self._train_step = functools.partial(
             tecogan_train_step, cfg_g=self.cfg_g, cfg_d=self.cfg_d,
             tcfg=self.tcfg, sched_g=self.sched_g, sched_d=self.sched_d,

@@ -1,5 +1,5 @@
 """Layer helpers (the port of ``tecogan_tpu/nn.py``'s ``cast_params`` and
-``batch_norm``), the device a run takes and the numerics inference runs
+``batch_norm``), the devices a run takes and the numerics inference runs
 under. Its ``leaky_relu`` and ``max_pool_2x2`` are torch's
 ``nn.LeakyReLU(0.2)`` and ``nn.MaxPool2d(2, 2)`` (floor semantics), which
 the networks hold as modules in the reference's layout."""
@@ -13,8 +13,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .parallel import dist
+
 __all__ = ["cast_params", "batch_norm", "inference_numerics",
-           "init_torch_default", "select_device"]
+           "init_torch_default", "select_device", "select_devices"]
 
 
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
@@ -38,10 +40,33 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
     In training mode the batch's
     statistics normalise and the fp32 running stats are updated in place
     as torch keeps them: momentum 0.1 toward the batch mean and the
-    unbiased batch variance."""
-    y = F.batch_norm(x.to(torch.promote_types(x.dtype, torch.float32)),
-                     running_mean, running_var, weight, bias, train,
-                     momentum, eps)
+    unbiased batch variance.
+
+    In a data-parallel run (``parallel.dist``, more than one rank) the
+    training statistics are the global batch's, as the JAX package's are
+    under its dp mesh (``tecogan_tpu/nn.py:342-372``): the global mean,
+    then the global mean of ``(x - mean)^2``, each one all-reduce of the
+    local sums, and the running variance unbiased with the global count.
+    The all-reduces are autograd's (``torch.distributed.nn``), so the
+    backward is the global batch's too."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if not train or dist.world() == 1:
+        y = F.batch_norm(xf, running_mean, running_var, weight, bias, train,
+                         momentum, eps)
+        return y.to(x.dtype)
+    from torch.distributed.nn.functional import all_reduce
+
+    n = x.shape[0] * x.shape[2] * x.shape[3] * dist.world()
+    mean = all_reduce(xf.sum((0, 2, 3))) / n
+    centred = xf - mean[:, None, None]
+    var = all_reduce(centred.square().sum((0, 2, 3))) / n
+    with torch.no_grad():
+        running_mean.mul_(1 - momentum).add_(momentum * mean.detach())
+        running_var.mul_(1 - momentum).add_(
+            momentum * var.detach() * (n / max(n - 1, 1)))
+    y = centred * torch.rsqrt(var + eps)[:, None, None]
+    if weight is not None:
+        y = y * weight[:, None, None] + bias[:, None, None]
     return y.to(x.dtype)
 
 
@@ -88,27 +113,32 @@ def inference_numerics(compute_dtype: str):
         cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
-def select_device(opt) -> torch.device:
-    """The one device ``opt['device_ids']`` names.
+def select_devices(opt) -> list:
+    """The devices ``opt['device_ids']`` names for this process.
 
-    ``[]`` is an explicit CPU run; ids map to ``cuda:<id>`` and must exist;
-    no ids means ``cuda:0``. Without CUDA and without an explicit ``[]``
-    this raises rather than running on the CPU.
+    ``[]`` is an explicit CPU run; ids map to ``cuda:<id>`` and must exist
+    (an id may repeat: row-sharded inference then runs its shards on one
+    card); no ids means ``cuda:0``. In a data-parallel run each rank takes
+    its own device (``parallel.dist.rank_device``). Without CUDA and
+    without an explicit ``[]`` this raises rather than running on the CPU.
     """
     ids = opt.get("device_ids")
     if ids is not None and len(ids) == 0:
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; set device_ids: [] to run on "
                            "the CPU explicitly")
-    if not ids:
-        return torch.device("cuda", 0)
     count = torch.cuda.device_count()
-    bad = [i for i in ids if i >= count or i < 0]
+    bad = [i for i in ids or [] if i >= count or i < 0]
     if bad:
         raise ValueError(f"device ids {bad} out of range: only {count} "
                          f"devices available")
-    if len(ids) > 1:
-        raise NotImplementedError(
-            f"multi-device inference is not ported yet; got device_ids {ids}")
-    return torch.device("cuda", ids[0])
+    if dist.world() > 1:
+        return [dist.rank_device(ids)]
+    return [torch.device("cuda", i) for i in (ids or [0])]
+
+
+def select_device(opt) -> torch.device:
+    """The first of ``select_devices(opt)``: the device a model's weights
+    live on."""
+    return select_devices(opt)[0]

@@ -35,7 +35,7 @@ import numpy as np
 
 from ..metrics.metric_calculator import _FARNEBACK
 from ..metrics.ssim import ssim as ssim_fn
-from ..utils.png import read_png
+from ..utils.png import read_image
 
 __all__ = ["crop_32", "psnr_y", "ssim_y", "list_png", "evaluate_folders",
            "device_from_gpu_ids"]
@@ -99,12 +99,17 @@ def ssim_y(tar, out):
 
 
 def _pair_frames(outs, tars, rdir, tdir):
-    """Pair result/target frame paths: equal-length lists by sorted order,
-    unequal lengths by matching basenames."""
-    if len(outs) == len(tars):
-        return outs, tars
+    """Pair result/target frame paths: by sorted order where both lists
+    hold the same names, or equally many frames whose names do not overlap
+    at all (names may differ between pipelines); by matching basenames,
+    with a WARNING, where the counts differ or equal counts hold different
+    but overlapping names (each dir missing another frame: pairing by
+    position would put every later pair a frame off)."""
     o_names = {osp.basename(p): p for p in outs}
     t_names = {osp.basename(p): p for p in tars}
+    if len(outs) == len(tars) and (o_names.keys() == t_names.keys()
+                                   or not o_names.keys() & t_names.keys()):
+        return outs, tars
     common = [n for n in sorted(o_names) if n in t_names]
     common.sort(key=lambda f: int("".join(filter(str.isdigit, f)) or -1))
     if not common:
@@ -232,8 +237,8 @@ def evaluate_folders(result_dirs, target_dirs, output_dir,
             pre = {}
 
             for i in range(_CUTFR, n - _CUTFR):
-                out = read_png(outs[i])
-                tar = read_png(tars[i])
+                out = read_image(outs[i])
+                tar = read_image(tars[i])
                 mh = min(out.shape[0], tar.shape[0])
                 mw = min(out.shape[1], tar.shape[1])
                 out, tar = out[:mh, :mw], tar[:mh, :mw]

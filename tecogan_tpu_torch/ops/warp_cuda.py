@@ -3,7 +3,10 @@ PyTorch version.
 
 K1 (``warp_planes``) replaces the TPU kernel
 ``tecogan_tpu/ops/warp_pallas.py::_warp_planes`` (kernel ``_warp_kernel``),
-band mode included (row-folded multi-stream inference); K2 (``warp_rgb``)
+band mode included (row-folded multi-stream inference), and its window
+mode (``warp_planes_window``, row-sharded inference: a slab of a taller
+image, clamped at the global border as
+``tecogan_tpu/ops/warp.py::backward_warp_window``); K2 (``warp_rgb``)
 replaces ``backward_warp_rgb_flat`` (kernel ``_warp_kernel_rgb``), the
 forward of every training warp. Both compute
 ``out[n, ch, i, j]`` = ``x[n, ch]`` sampled at ``(clip(i + fy, 0, H-1),
@@ -43,16 +46,20 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 __all__ = ["OPS", "stride_grid", "tile_pixels", "tile_plan", "warp_planes",
-           "warp_planes_reference", "warp_rgb"]
+           "warp_planes_reference", "warp_planes_window",
+           "warp_planes_window_reference", "warp_rgb"]
 
 # the port's operators (K1 here, K5 in warp_phases.py)
 OPS = torch.library.Library("tecogan_torch", "DEF")
 
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# K1's C entry point for each (planes, flow) dtype pair
+# K1's C entry point for each (planes, flow) dtype pair, and its window
+# mode's
 _PLANES_ENTRY = {(a, b): f"tecogan_warp_planes_{ta}_{tb}"
                  for a, ta in _DTYPE_TAG.items()
                  for b, tb in _DTYPE_TAG.items()}
+_WINDOW_ENTRY = {k: v.replace("_planes_", "_window_")
+                 for k, v in _PLANES_ENTRY.items()}
 
 # the row tiles of csrc/warp_common.cuh (kTileRows, kTileSteps)
 TILE_ROWS, TILE_STEPS = 4, 2
@@ -178,17 +185,21 @@ def _rgb_plan(shape: torch.Size, strides: tuple, out_strides: tuple,
 
 
 def bilinear_taps(flow: torch.Tensor, h: int, w: int, band: int = 0,
-                  band_valid: int = 0):
+                  band_valid: int = 0, out_y0: int = 0, h_glob: int = 0):
     """The fp32 stencil of every output pixel for an (n, H, W, 2) flow:
     int64 tap indices (y0, x0, y1, x1) and fractional weights (wy, wx),
     each (n, H, W), in the kernels' order of operations. ``band`` > 0
     takes each row relative to its band of ``band`` rows and clamps it to
-    the band's first ``band_valid`` rows (K1's band mode)."""
+    the band's first ``band_valid`` rows (K1's band mode). ``h_glob`` > 0
+    takes output row i as row ``out_y0 + i`` of an ``h_glob``-row image and
+    clamps there (K1's window mode; the rows are global)."""
     f = flow.float()
     rows = torch.arange(h, device=flow.device)[:, None]
     first, rows_valid = 0, h
     if band:
         first, rows, rows_valid = rows - rows % band, rows % band, band_valid
+    elif h_glob:
+        rows, rows_valid = rows + out_y0, h_glob
     ii = rows.float()
     jj = torch.arange(w, dtype=torch.float32, device=flow.device)[None, :]
     syc = torch.clamp(ii + f[..., 1], 0.0, rows_valid - 1.0)
@@ -203,10 +214,30 @@ def bilinear_taps(flow: torch.Tensor, h: int, w: int, band: int = 0,
 
 def gather_tap(img: torch.Tensor, yi: torch.Tensor,
                xi: torch.Tensor) -> torch.Tensor:
-    """The values of img (n, c, H, W) at the (n, H, W) tap indices."""
+    """The values of img (n, c, H, W) at the (n, Ho, W) tap indices: (n, c,
+    Ho, W)."""
     n, c, h, w = img.shape
-    idx = (yi * w + xi).reshape(n, 1, h * w).expand(n, c, h * w)
-    return img.reshape(n, c, h * w).gather(2, idx).reshape(n, c, h, w)
+    ho = yi.shape[1]
+    idx = (yi * w + xi).reshape(n, 1, ho * w).expand(n, c, ho * w)
+    return img.reshape(n, c, h * w).gather(2, idx).reshape(n, c, ho, w)
+
+
+def _blend(planes, y0i, x0i, y1i, x1i, wy, wx) -> torch.Tensor:
+    """The bilinear sum of ``planes``' four taps in fp32, in the kernels'
+    order of operations, cast to the planes' dtype."""
+    wy0 = 1.0 - wy
+    wx0 = 1.0 - wx
+    xf = planes.float()
+
+    def tap(yi, xi):
+        return gather_tap(xf, yi, xi)
+
+    def wt(a, b):
+        return (a * b)[:, None]
+
+    top = wt(wx0, wy0) * tap(y0i, x0i) + wt(wx, wy0) * tap(y0i, x1i)
+    bot = wt(wx0, wy) * tap(y1i, x0i) + wt(wx, wy) * tap(y1i, x1i)
+    return (top + bot).to(planes.dtype)
 
 
 def warp_planes_reference(planes: torch.Tensor, flow: torch.Tensor,
@@ -225,20 +256,42 @@ def warp_planes_reference(planes: torch.Tensor, flow: torch.Tensor,
     """
     h, w = planes.shape[-2:]
     check_band(h, band, band_valid)
-    y0i, x0i, y1i, x1i, wy, wx = bilinear_taps(flow, h, w, band, band_valid)
-    wy0 = 1.0 - wy
-    wx0 = 1.0 - wx
-    xf = planes.float()
+    return _blend(planes, *bilinear_taps(flow, h, w, band, band_valid))
 
-    def tap(yi, xi):
-        return gather_tap(xf, yi, xi)
 
-    def wt(a, b):
-        return (a * b)[:, None]
+def check_window(shape: torch.Size, flow_shape: torch.Size,
+                 h_glob: int) -> None:
+    """Raise unless planes of ``shape`` (n, c, hx, W) and a flow of
+    ``flow_shape`` (n, ho, W, 2) make a window warp of an ``h_glob``-row
+    image."""
+    if len(shape) != 4 or len(flow_shape) != 4:
+        raise ValueError(f"warp_planes_window: planes must be (n, c, hx, W) "
+                         f"and flow (n, ho, W, 2); got {tuple(shape)} and "
+                         f"{tuple(flow_shape)}")
+    n, _, hx, w = shape
+    if (flow_shape[0], flow_shape[2], flow_shape[3]) != (n, w, 2):
+        raise ValueError(f"warp_planes_window: flow must be (n, ho, W, 2) "
+                         f"with (n, W) = {(n, w)}, got {tuple(flow_shape)}")
+    if hx < 1 or h_glob < 1:
+        raise ValueError(f"warp_planes_window: the slab (hx={hx}) and the "
+                         f"image (h_glob={h_glob}) need rows")
 
-    top = wt(wx0, wy0) * tap(y0i, x0i) + wt(wx, wy0) * tap(y0i, x1i)
-    bot = wt(wx0, wy) * tap(y1i, x0i) + wt(wx, wy) * tap(y1i, x1i)
-    return (top + bot).to(planes.dtype)
+
+def warp_planes_window_reference(planes: torch.Tensor, flow: torch.Tensor,
+                                 out_y0: int, x_y0: int,
+                                 h_glob: int) -> torch.Tensor:
+    """Plain PyTorch version of K1's window mode (``warp_planes_window``):
+    ``bilinear_taps`` in global rows, then only the clamped integer tap
+    rows translated by ``-x_y0`` into the slab (and clipped to it), the
+    float coordinates untouched, as
+    ``tecogan_tpu/ops/warp.py::backward_warp_window`` orders it."""
+    check_window(planes.shape, flow.shape, h_glob)
+    hx, w = planes.shape[-2:]
+    y0g, x0i, y1g, x1i, wy, wx = bilinear_taps(flow, flow.shape[1], w,
+                                               out_y0=out_y0, h_glob=h_glob)
+    y0i = torch.clamp(y0g - x_y0, 0, hx - 1)
+    y1i = torch.clamp(y1g - x_y0, 0, hx - 1)
+    return _blend(planes, y0i, x0i, y1i, x1i, wy, wx)
 
 
 def check_band(h: int, band: int, band_valid: int) -> None:
@@ -385,6 +438,63 @@ torch.library.register_fake("tecogan_torch::warp_planes", _warp_planes_fake,
 _PLANES_OP = torch.ops.tecogan_torch.warp_planes.default
 
 
+@functools.lru_cache(maxsize=256)
+def _window_plan(shape: torch.Size, flow_shape: torch.Size,
+                 flow_strides: tuple, h_glob: int) -> None:
+    """Raise unless K1's window mode can take contiguous planes of
+    ``shape`` and a flow of ``flow_shape`` and ``flow_strides``. Cached."""
+    check_window(shape, flow_shape, h_glob)
+    n, c, hx, w = shape
+    ho = flow_shape[1]
+    tile_plan(n, ho, w)
+    for rows in (hx, ho):
+        check_offsets("warp_planes_window", (n, c, rows, w), flow_strides,
+                      (c * rows * w, rows * w, w, 1))
+
+
+def warp_planes_window(planes: torch.Tensor, flow: torch.Tensor,
+                       out_y0: int, x_y0: int, h_glob: int) -> torch.Tensor:
+    """K1's window mode: warp a row slab of a taller image.
+
+    ``planes`` (n, c, hx, W) holds the global rows ``[x_y0, x_y0 + hx)``
+    of an ``h_glob``-row image (x_y0 may be negative: rows outside the
+    image are filler no kept output reads); ``flow`` (n, ho, W, 2) is the
+    flow of the output rows ``[out_y0, out_y0 + ho)``. Output row i samples
+    at ``clip(out_y0 + i + fy, 0, h_glob - 1)`` and ``clip(j + fx, 0,
+    W - 1)``: coordinates, floor and weights in global rows, then the
+    integer tap rows translated into the slab and clipped to it. Returns
+    (n, c, ho, W) in the planes' dtype. With ``out_y0 = x_y0 = 0`` and
+    ``h_glob = hx = ho`` it is ``warp_planes``, bit for bit.
+
+    CPU tensors: ``warp_planes_window_reference``. CUDA tensors: K1's
+    kernel body in its window instantiation (``csrc/warp_planes.cu``),
+    launched on the current stream; the planes are contiguous NCHW, the
+    flow may have any strides. Other devices raise.
+    ``warp_planes_window.launches`` counts kernel launches.
+    """
+    if all_on_cpu(planes, flow):
+        return warp_planes_window_reference(planes, flow, out_y0, x_y0,
+                                            h_glob)
+    index = cuda_index("warp_planes_window", planes, flow)
+    name = _WINDOW_ENTRY.get((planes.dtype, flow.dtype))
+    if name is None:
+        raise TypeError(f"warp_planes_window takes float32/bfloat16, got "
+                        f"{[planes.dtype, flow.dtype]}")
+    fs = flow.stride()
+    _window_plan(planes.shape, flow.shape, fs, h_glob)
+    if not planes.is_contiguous():
+        raise ValueError("warp_planes_window: planes must be contiguous "
+                         "NCHW")
+    n, c, hx, w = planes.shape
+    ho = flow.shape[1]
+    out = torch.empty((n, c, ho, w), dtype=planes.dtype,
+                      device=planes.device)
+    launch(name, index, planes.data_ptr(), flow.data_ptr(), out.data_ptr(),
+           n, c, ho, w, hx, out_y0, x_y0, h_glob, *fs)
+    warp_planes_window.launches += 1
+    return out
+
+
 def warp_rgb(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Warp an image x, logically (n, c, H, W), along flow (n, H, W, 2).
 
@@ -410,4 +520,5 @@ def warp_rgb(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 warp_planes.launches = 0
 warp_planes.band_launches = 0
+warp_planes_window.launches = 0
 warp_rgb.launches = 0

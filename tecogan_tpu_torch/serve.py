@@ -6,8 +6,9 @@ serving artifact alone (port of ``tecogan_tpu/serve.py``)::
 
 ``in_dir`` is either one sequence (a directory of frames) or a directory
 of sequence sub-directories, the folder layout test mode reads. Frames
-are PNG (read by ``utils/png.py``) or JPEG/BMP (read by cv2, imported
-only for them) and must match the artifact's LR geometry (h, w);
+are PNG, JPEG or BMP (``utils/png.py::read_image``: 8-bit PNGs by its
+own decoder, every other file by cv2, imported for them alone) and must
+match the artifact's LR geometry (h, w);
 sequences shorter than the artifact's fixed ``t`` are tail-padded and
 trimmed on output (the recurrence is causal, so the earlier frames are
 those of an exact-length program). Streams go through the program in
@@ -31,6 +32,8 @@ import os
 import os.path as osp
 
 import numpy as np
+
+from .utils.png import read_image
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
 
@@ -69,28 +72,10 @@ def discover_sequences(in_dir: str):
     return seqs
 
 
-def read_frame(path: str) -> np.ndarray:
-    """An image file -> (h, w, 3) uint8 RGB: PNG by ``utils/png.py``,
-    JPEG and BMP by cv2, which only they need."""
-    from .utils.png import read_png
-
-    if path.lower().endswith(".png"):
-        return read_png(path)
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"reading {path} needs OpenCV (cv2), which is not "
-                          f"installed; PNG frames need nothing ({e})") from e
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:
-        raise IOError(f"failed to read {path}")
-    return img[..., ::-1]
-
-
 def _read_sequence(seq_dir, frames, h, w, name):
     out = np.empty((len(frames), h, w, 3), np.float32)
     for i, fn in enumerate(frames):
-        img = read_frame(osp.join(seq_dir, fn))
+        img = read_image(osp.join(seq_dir, fn))
         if img.shape[:2] != (h, w):
             raise ValueError(
                 f"sequence {name!r} frame {fn}: shape {img.shape[:2]} does "

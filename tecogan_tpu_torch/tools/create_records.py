@@ -25,7 +25,7 @@ import random
 import numpy as np
 
 from ..data.records import RecordWriter, make_key, open_store
-from ..utils.png import read_png, write_png
+from ..utils.png import read_image, write_png
 
 __all__ = ["build", "build_lmdb", "check"]
 
@@ -38,7 +38,7 @@ def _iter_sequences(raw_dir, filter_file=None):
         seqs = [s for s in seqs if s in sel]
     for si, seq in enumerate(seqs):
         seq_dir = osp.join(raw_dir, seq)
-        frames = [read_png(osp.join(seq_dir, fname))
+        frames = [read_image(osp.join(seq_dir, fname))
                   for fname in sorted(os.listdir(seq_dir))
                   if fname.lower().endswith((".png", ".jpg"))]
         if frames:

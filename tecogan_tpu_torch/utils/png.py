@@ -1,7 +1,7 @@
 """PNG frames with numpy and zlib: the port's counterpart of ``cv2.imread``
 (``tecogan_tpu/data/datasets.py:311-324``) and ``cv2.imwrite``
 (``tecogan_tpu/ops/color.py:41-50``), since OpenCV is not a dependency of
-the port.
+the port, and ``read_image``, the one frame reader of every path.
 
 ``read_png`` decodes 8-bit grey, grey+alpha, RGB and RGBA images with any
 of the five row filters and returns RGB as ``cv2.IMREAD_COLOR`` would
@@ -9,6 +9,13 @@ of the five row filters and returns RGB as ``cv2.IMREAD_COLOR`` would
 dropped. Palette images, 16-bit samples, interlacing, other formats (JPEG
 frames included) and corrupt files raise ``IOError`` naming the file.
 ``write_png`` writes 8-bit RGB with no row filter.
+
+``read_image`` reads what the JAX package's readers read
+(``cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]``: its datasets, its
+``scripts/create_records.py:37-39``, its official harness and its serving
+host): 8-bit PNGs that ``read_png`` decodes through ``read_png``, every
+other file (JPEG, BMP, palette, 16-bit and interlaced PNG) through cv2,
+imported for them alone.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png", "write_png"]
+__all__ = ["read_image", "read_png", "write_png"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples per pixel by colour type: grey, RGB, grey+alpha, RGBA
@@ -118,6 +125,39 @@ def read_png(path) -> np.ndarray:
     if bpp <= 2:
         return np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _read_png_decodes(head: bytes) -> bool:
+    """Whether a file starting with ``head`` (its first 29 bytes or more)
+    is a PNG whose header ``read_png`` decodes: 8-bit grey or RGB, with or
+    without alpha, not interlaced."""
+    if len(head) < 29 or not head.startswith(_SIGNATURE) \
+            or head[12:16] != b"IHDR":
+        return False
+    depth, ctype, interlace = head[24], head[25], head[28]
+    return depth == 8 and ctype in _CHANNELS and interlace == 0
+
+
+def read_image(path) -> np.ndarray:
+    """An image file -> (h, w, 3) uint8 RGB, as ``cv2.imread(path,
+    cv2.IMREAD_COLOR)[..., ::-1]`` gives it: ``read_png`` for the 8-bit
+    PNGs it decodes, cv2 for every other file. Raises ImportError where
+    such a file needs cv2 and it is not installed, and IOError naming the
+    file where cv2 cannot read it."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    if _read_png_decodes(head):
+        return read_png(path)
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"tecogan_tpu_torch reads {path} with OpenCV (cv2), which is "
+            f"not installed; 8-bit PNG frames need nothing ({e})") from e
+    img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    if img is None:
+        raise IOError(f"failed to read {path}")
+    return np.ascontiguousarray(img[..., ::-1])
 
 
 def _chunk(kind, data):

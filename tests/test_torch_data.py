@@ -320,6 +320,38 @@ def _uniform_store(tmp_path, rng, name="uni.rec"):
                   [(f"v{i}", _frames(rng, 6, 48, 56)) for i in range(3)])
 
 
+@pytest.mark.parametrize("resident", [False, True])
+def test_loader_rank_rows_are_global_rows(tmp_path, rng, resident):
+    """In a run of 2 ranks, rank r's batches are rows [r, r + 1) of each
+    global batch of 2 the one-process loader yields, bit for bit
+    (``parallel.dist.shard_rows``); a global batch that does not divide
+    over the ranks raises."""
+    ds = datasets.UnpairedClipDataset(
+        _write(records, tmp_path / "four.rec",
+               [(f"v{i}", _frames(rng, 6, 48, 56)) for i in range(4)]),
+        crop_size=24, tempo_extent=4, moving_first_frame=True,
+        moving_factor=0.5, output_dtype=np.uint8)
+
+    def loader(rank, world):
+        if resident:
+            return device_data.DeviceResidentLoader(
+                ds, batch_size=2, device=torch.device("cpu"), seed=3,
+                rank=rank, world=world)
+        return TrainLoader(ds, batch_size=2, seed=3, num_workers=2,
+                           rank=rank, world=world)
+
+    whole = list(loader(0, 1).epoch(1))
+    assert len(whole) == len(ds) // 2
+    for r in range(2):
+        part = list(loader(r, 2).epoch(1))
+        assert len(part) == len(whole)
+        for x, y in zip(part, whole):
+            np.testing.assert_array_equal(np.asarray(x["gt"]),
+                                          np.asarray(y["gt"])[r:r + 1])
+    with pytest.raises(ValueError, match="does not divide over 3 ranks"):
+        loader(0, 3)
+
+
 @pytest.mark.parametrize("form", ["BD", "BI"])
 def test_device_resident_loader_matches_host(tmp_path, rng, paired_dirs,
                                              form):
@@ -406,7 +438,7 @@ def test_factory_builds_the_jax_loaders(tmp_path, rng, paired_dirs, form):
     assert isinstance(dev, device_data.DeviceResidentLoader)
     np.testing.assert_array_equal(next(iter(dev.epoch(1)))["gt"].numpy(),
                                   want["gt"])
-    with pytest.raises(NotImplementedError, match="several devices"):
+    with pytest.raises(ValueError, match="one process per device"):
         create_dataloader({**opt, "device_ids": [0, 1]}, "train", "train")
 
 

@@ -144,8 +144,8 @@ def test_lpips_column_is_the_metric_calculators(tmp_path, rng,
     metric = lpips.LPIPS(device="cpu")
     want = []
     for i in range(2, 5):
-        tar = metrics.read_png(str(tmp_path / "gt" / f"{i:04d}.png"))
-        out = metrics.read_png(str(tmp_path / "sr" / f"{i:04d}.png"))
+        tar = metrics.read_image(str(tmp_path / "gt" / f"{i:04d}.png"))
+        out = metrics.read_image(str(tmp_path / "sr" / f"{i:04d}.png"))
         want.append(metric(metrics.crop_32(tar)[0],
                            metrics.crop_32(out)[0])[0])
     assert np.float32(series).tolist() == np.float32(want).tolist()

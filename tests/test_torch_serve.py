@@ -23,7 +23,7 @@ from tecogan_tpu_torch.models.convert import (jax_from_state_dict,
                                               state_dict_from_jax)
 from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
                                                infer_sequence_batch)
-from tecogan_tpu_torch.utils.png import read_png, write_png
+from tecogan_tpu_torch.utils.png import read_image, read_png, write_png
 
 _REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 N, T, H, W, CHUNK = 1, 5, 16, 24, 4
@@ -135,7 +135,7 @@ def test_serve_pre_roll_ckpt_override_and_refusals(tmp_path, weights):
                 ckpt, "--quiet"])
     assert sorted(os.listdir(tmp_path / "jout" / "clip")) == [
         f"{i:04d}.png" for i in range(4)]
-    read = np.stack([serve.read_frame(str(tmp_path / "jpg" / "clip" /
+    read = np.stack([read_image(str(tmp_path / "jpg" / "clip" /
                                           f"{i:04d}.jpg"))
                      for i in range(4)]).astype(np.float32) / 255.0
     padded = np.concatenate([read] + [read[-1:]] * (t - 4))[None]

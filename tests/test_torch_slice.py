@@ -154,8 +154,9 @@ def test_vsr_model_requires_cuda_or_explicit_cpu():
     # training is ported, and likewise never falls back to the CPU
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VSRModel({**opt, "is_train": True})
-    with pytest.raises(NotImplementedError):
-        VSRModel({**_test_opt(None), "test": {"spatial_partition": True}})
+    # nor does row-sharded inference
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VSRModel({**opt, "test": {**opt["test"], "spatial_partition": True}})
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -331,8 +332,9 @@ def test_bf16_long_sequence_drift_bound(rng):
 
 def test_test_mode_runs_without_jax_cv2_or_yaml(tmp_path):
     """`python -m tecogan_tpu_torch.main --mode test --gpu_ids -1` with
-    jax, the JAX package, cv2 and yaml blocked: PNG folders in, PNGs and
-    a metrics JSON with PSNR and SSIM out, the tOF and LPIPS gates
+    jax, the JAX package, cv2 and yaml blocked: 8-bit PNG folders in
+    (``utils/png.py::read_image`` imports cv2 only for other frames), PNGs
+    and a metrics JSON with PSNR and SSIM out, the tOF and LPIPS gates
     logged."""
     code = textwrap.dedent(f"""
         import sys
