@@ -141,6 +141,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
    those of the structure, the bf16 step time of the two ranks sharing the
    card beside one process at the global batch; then the CLI's --mode
    train for 2 iterations at world size 1 over NCCL.
+21. the bench entry: ``python3 bench_torch.py`` in a subprocess, as a user
+   runs it (bench.py's protocol on the card: its JSON line with the four
+   keys and the port's metric name, a finite FPS > 0, K1 once per warped
+   frame of its 6 runs), then the perf canary
+   (``tools/bench_suite.check_canary``) in process against
+   ``tools/perf_canary.json``: bf16 4x BD FPS and FRVSR and TecoGAN
+   ms/step at the reference batch geometry, each inside its band; K1, K2,
+   K3+K4 and K4 launched by it.
 
 Every kernel is timed beside its plain version, its device time (from
 torch.profiler), one PyTorch library call that computes the same function
@@ -154,6 +162,7 @@ second-to-last line lists the kernels as JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -1167,42 +1176,6 @@ def _shipped(path):
         return safe_load(f.read())
 
 
-def _yaml_text(opt):
-    """A nested dict of scalars and lists of scalars as block YAML that the
-    port's reader reads back to ``opt`` (the port does not import
-    PyYAML)."""
-    from tecogan_tpu_torch.utils.yaml_subset import safe_load
-
-    def scalar(v):
-        if v is None:
-            return "null"
-        if isinstance(v, bool):
-            return "true" if v else "false"
-        if isinstance(v, float):
-            # YAML 1.1 reads 5e-05 as a string: the mantissa needs its dot
-            text = repr(v)
-            mant, e, exp = text.partition("e")
-            return f"{mant}.0e{exp}" if e and "." not in mant else text
-        if isinstance(v, int):
-            return repr(v)
-        return "'" + str(v).replace("'", "''") + "'"
-
-    def lines(d, indent):
-        for k, v in d.items():
-            if isinstance(v, dict):
-                yield f"{' ' * indent}{k}:"
-                yield from lines(v, indent + 2)
-            elif isinstance(v, list):
-                yield f"{' ' * indent}{k}:"
-                yield from (f"{' ' * indent}- {scalar(x)}" for x in v)
-            else:
-                yield f"{' ' * indent}{k}: {scalar(v)}"
-
-    text = "\n".join(lines(opt, 0)) + "\n"
-    _require(safe_load(text) == opt, "the YAML written does not read back")
-    return text
-
-
 def _write_seq(seq_dir, frames):
     from tecogan_tpu_torch.utils.png import write_png
 
@@ -1305,6 +1278,8 @@ def _png_read_times(tmp, frames, card):
 
 def _test_mode_opt(tmp, name, degradation, test_set, load_path, metric):
     """The shipped FRVSR test.yml with its paths replaced."""
+    from tecogan_tpu_torch.utils.yaml_subset import safe_dump
+
     opt = _shipped(SHIPPED_TEST_YML)
     exp = os.path.join(tmp, f"exp_{name}")
     opt["dataset"] = {"degradation": degradation,
@@ -1319,7 +1294,7 @@ def _test_mode_opt(tmp, name, degradation, test_set, load_path, metric):
     os.makedirs(exp)
     path = os.path.join(exp, "test.yml")
     with open(path, "w") as f:
-        f.write(_yaml_text(opt))
+        f.write(safe_dump(opt))
     return exp, path, opt["test"]["num_pad_front"]
 
 
@@ -2726,10 +2701,10 @@ BI_VIDS, BI_FRAMES = ("001", "002"), 12
 # validation at 6 and 12; then a resume to 15 and a run with nothing left
 LOOP_ITERS, LOOP_CKPT, LOOP_TEST, LOOP_RESUME = 12, 5, 6, 15
 # the loop's time in turns (TURNS: True for the device-resident loader),
-# three pairs of TURN_ITERS iterations each without checkpoints or
+# two pairs of TURN_ITERS iterations each without checkpoints or
 # validation
-TURNS = (False, True, True, False, False, True)
-TURN_ITERS, PROFILE_ITERS, GAN_LOOP_ITERS = 40, 3, 4
+TURNS = (False, True, True, False)
+TURN_ITERS, PROFILE_ITERS, GAN_LOOP_ITERS = 20, 3, 4
 LOADER_BATCHES = 40
 RESIDENT_CHECK_BATCHES = 4
 CLI_GPU = "0"
@@ -2836,11 +2811,12 @@ def _cli_train(exp, opt, probe=None):
     import torch
 
     from tecogan_tpu_torch.main import main as cli_main
+    from tecogan_tpu_torch.utils.yaml_subset import safe_dump
 
     os.makedirs(exp, exist_ok=True)
     yml = os.path.join(exp, "train.yml")
     with open(yml, "w") as f:
-        f.write(_yaml_text(opt))
+        f.write(safe_dump(opt))
     probe = probe or _TrainProbe()
     _reset_counts()
     with _LogLines() as lines, probe:
@@ -4219,6 +4195,7 @@ def phase_dp(card, params):
     from tecogan_tpu_torch.ops.color import float32_to_uint8
     from tecogan_tpu_torch.parallel import dist
     from tecogan_tpu_torch.utils.ckpt import save_pytree
+    from tecogan_tpu_torch.utils.yaml_subset import safe_dump
 
     with tempfile.TemporaryDirectory() as tmp:
         g_path = f"{tmp}/G_seed.npz"
@@ -4362,7 +4339,7 @@ def phase_dp(card, params):
         os.makedirs(exp)
         yml = f"{exp}/train.yml"
         with open(yml, "w") as f:
-            f.write(_yaml_text(_frvsr_reds_opt(
+            f.write(safe_dump(_frvsr_reds_opt(
                 store, f"{tmp}/cli/none", total_iter=2, log_freq=1,
                 ckpt_freq=2, test_freq=0)))
         t0 = time.perf_counter()
@@ -4381,6 +4358,57 @@ def phase_dp(card, params):
     return {k: r0["frvsr_bf16_counts"][k] + r0["frvsr_f32_counts"][k]
             + r0["gan_counts"][k] + r0["gan_lr_counts"][k]
             for k in ("K2", "K3", "K3+K4", "K4")}
+
+
+# ------------------------------------------------------------ bench entry
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_RUNS = 6  # bench_torch.py: one warm-up and 5 timed runs
+
+
+def phase_bench(card):
+    """``python3 bench_torch.py`` in a subprocess, as a user runs it: its
+    last line one JSON object with bench.py's four keys, the port's metric
+    name and a finite FPS > 0, its K1 launches one per warped frame of its
+    runs; then the perf canary (``tools/bench_suite.check_canary``) in
+    process against ``tools/perf_canary.json``, which must pass. Returns
+    the canary's launches (its FPS row: K1; its FRVSR and TecoGAN rows:
+    K2, K3, K3+K4, K4)."""
+    from tecogan_tpu_torch.tools import bench_suite
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    start = t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "bench_torch.py"], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    _require(res.returncode == 0,
+             f"bench_torch.py exited {res.returncode}: {res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    print(f"bench_torch.py ({secs:.1f} s with its process): "
+          f"{lines[-1]}; {lines[0]}")
+    _require(set(line) == BENCH_KEYS
+             and line["metric"] == "torch_4x_bd_sr_fps_134x320"
+             and math.isfinite(line["value"]) and line["value"] > 0,
+             f"bench_torch.py's line: {line}")
+    k1 = int(next(ln for ln in lines
+                  if ln.startswith("warp_planes launches:")).split(":")[1])
+    _require(k1 == BENCH_RUNS * _frames_warped(64, 64),
+             f"bench_torch.py launched K1 {k1} times, expected "
+             f"{BENCH_RUNS * _frames_warped(64, 64)}")
+    _reset_counts()
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        ok = bench_suite.check_canary()
+    counts = _read_counts()
+    print(table.getvalue(), end="")
+    print(f"perf canary launches: {counts}; phase 21 took "
+          f"{time.perf_counter() - start:.1f} s on {card}")
+    _require(ok, "the perf canary failed (tools/perf_canary.json):\n"
+             + table.getvalue())
+    for key in ("K1", "K2", "K3+K4", "K4"):
+        _require(counts[key] > 0, f"the canary launched no {key}")
+    return counts
 
 
 def _start_weights(opt):
@@ -4454,6 +4482,8 @@ def main() -> int:
     launches["K1"] += phase_profile_mode(card)
     launches["K1"] += phase_lpips(card)
     for key, count in phase_dp(card, params).items():
+        launches[key] += count
+    for key, count in phase_bench(card).items():
         launches[key] += count
 
     _require("jax" not in sys.modules and "yaml" not in sys.modules,

@@ -23,7 +23,9 @@ _SEP = "/"
 def _flatten(tree, prefix=""):
     out = {}
     if isinstance(tree, dict):
-        for k, v in tree.items():
+        # in sorted key order: the order of the JAX package's files, whose
+        # save_pytree flattens a tree that jax.device_get rebuilt sorted
+        for k, v in sorted(tree.items(), key=lambda kv: str(kv[0])):
             if not isinstance(k, str) or _SEP in k or k.startswith("#"):
                 # such keys would not round-trip through the path syntax
                 raise ValueError(

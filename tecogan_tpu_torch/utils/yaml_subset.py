@@ -17,13 +17,16 @@ sexagesimal) and floats only with a dot (``5.0e-05`` is a float, ``1e-4``
 a string). Anything else — flow collections, anchors and aliases, tags,
 block and multi-line scalars, document markers, timestamps, tabs in the
 indentation — raises ``ValueError`` naming the line.
+
+``safe_dump`` writes the other way: a nested dict of scalars and lists of
+scalars as block YAML inside the subset, checked to read back.
 """
 
 from __future__ import annotations
 
 import re
 
-__all__ = ["safe_load"]
+__all__ = ["safe_dump", "safe_load"]
 
 # PyYAML's implicit resolvers (yaml/resolver.py), YAML 1.1
 _BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False"
@@ -304,3 +307,45 @@ def safe_load(source: str):
     if extra is not None:
         raise _error(extra.no, "text after the document's top node")
     return value
+
+
+def _dump_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, float):
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        # YAML 1.1 reads 5e-05 as a string: the mantissa needs its dot
+        text = repr(v)
+        mant, e, exp = text.partition("e")
+        return f"{mant}.0e{exp}" if e and "." not in mant else text
+    if isinstance(v, int):
+        return repr(v)
+    return "'" + str(v).replace("'", "''") + "'"
+
+
+def safe_dump(data: dict) -> str:
+    """A nested dict of scalars (None, bool, int, float, str) and lists of
+    scalars as block YAML that ``safe_load`` (and ``yaml.safe_load``) reads
+    back to ``data``; raises ``ValueError`` where it would not (an empty
+    list, a list of mappings)."""
+    def lines(d, indent):
+        pad = " " * indent
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield f"{pad}{k}:"
+                yield from lines(v, indent + 2)
+            elif isinstance(v, list):
+                yield f"{pad}{k}:"
+                yield from (f"{pad}- {_dump_scalar(x)}" for x in v)
+            else:
+                yield f"{pad}{k}: {_dump_scalar(v)}"
+
+    text = "\n".join(lines(data, 0)) + "\n"
+    if safe_load(text) != data:
+        raise ValueError("the data does not read back from the YAML "
+                         "subset (empty lists and lists of mappings are "
+                         "outside it)")
+    return text

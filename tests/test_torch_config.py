@@ -10,7 +10,7 @@ import yaml
 
 from tecogan_tpu.utils import config as jconfig
 from tecogan_tpu_torch.utils import config as tconfig
-from tecogan_tpu_torch.utils.yaml_subset import safe_load
+from tecogan_tpu_torch.utils.yaml_subset import safe_dump, safe_load
 
 _REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 _SHIPPED = sorted(osp.relpath(p, _REPO) for p in glob.glob(
@@ -67,6 +67,21 @@ def _tiny_exp_opt():
 def test_safe_dump_round_trip():
     text = yaml.safe_dump(_tiny_exp_opt())
     assert safe_load(text) == yaml.safe_load(text) == _tiny_exp_opt()
+
+
+@pytest.mark.parametrize("path", _SHIPPED + ["tiny"])
+def test_port_safe_dump_reads_back(path):
+    """The port's writer: each shipped config (and the tiny one, with its
+    trap strings and numbers) reads back through both readers."""
+    if path == "tiny":
+        opt = _tiny_exp_opt()
+    else:
+        with open(osp.join(_REPO, path)) as f:
+            opt = yaml.safe_load(f)
+    text = safe_dump(opt)
+    assert safe_load(text) == yaml.safe_load(text) == opt
+    with pytest.raises(ValueError, match="does not read back"):
+        safe_dump({**opt, "empty": []})
 
 
 # YAML 1.1 scalar resolution as PyYAML does it (the configs' traps first)

@@ -6,11 +6,12 @@ over gloo on the CPU, launched with torchrun's environment as
   1 clip a rank: the two ranks' running logs, weights and gradients are
   identical, and equal the one-process run at the doubled batch;
   checkpoints and the merged validation JSON come from rank 0.
-- One TecoGAN step at a global batch of 2 against the JAX package's
-  ``tecogan_train_step`` on the whole batch: the logs, D's BatchNorm
-  running stats (global statistics), the vote, and G's and D's gradients
-  (read from JAX's Adam state); the Adam updates and the gradients against
-  the port's one-process step on the whole batch.
+- One TecoGAN step at a global batch of 2, run twice (at D's lr 0 and at
+  D's lr), against the JAX package's ``tecogan_train_step`` on the whole
+  batch: the logs, D's BatchNorm running stats (global statistics), the
+  vote, and G's and D's gradients (read from JAX's Adam state); the Adam
+  updates and the gradients against the port's one-process step on the
+  whole batch.
 - Test mode's round-robin: sequences r, r + 2, ... on rank r, the merged
   metrics JSON equal to the one-process run's.
 
@@ -21,10 +22,26 @@ another order: logs rtol 1e-5 / atol 1e-7 against one process and rtol
 BatchNorm stats atol 1e-5 (``test_torch_gan_step.py``'s), weights by
 ``_assert_adam_close``'s rule (Adam at lr 1e-5: an element whose gradient
 sits at fp32's noise level may take its step the other way), gradients by
-``_GRAD_REL_ONE`` and ``_GRAD_REL_JAX``.
+``_GRAD_REL_ONE``, ``_GRAD_REL_JAX`` and ``_GRAD_REL_G_AFTER_D``.
+
+The GAN step runs twice in one launch. At D's lr 0, G reads the same D in
+every run, so G's gradient and Adam update are held tightly: 1.6e-6
+against one process, 2.8e-6 against JAX, no element of G's Adam update
+off (largest 2.6e-8, 0.0026 lr). At D's shipped lr, G reads D after D's
+Adam step, in which an element whose gradient sits at fp32's noise level
+steps +-lr by the order of summation; G's gradient then moves 5.14e-4
+from both one process and JAX, and G's Adam update is not well posed (12
+of 7344 elements of conv_in's weight 1.48 lr off, where the rule allows
+7.3). There only D's update (at most 1 element off a tensor), D's
+gradient, the stats, the vote and the logs are held, and G's gradient at
+the JAX band. Both planted faults fail the test (readings on the CPU,
+two gloo ranks): the gradient summed without the divide by ``world()``
+puts G and D 1.000 off in both runs (and 150357 of 294912 elements of
+G's Adam update off); D's BatchNorm backward left on each rank puts D
+1.171 off (conv_in's bias), G 0.337 off at D's lr 0 and 0.321 at its lr,
+and l_gan_G 1.4% off JAX.
 """
 
-import functools
 import json
 import os
 import os.path as osp
@@ -59,14 +76,19 @@ from test_torch_train_loop import data  # noqa: F401  (the fixture)
 _REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 _LR = 1e-5
 # each gradient tensor, by relative L2 error: against one process at the
-# doubled batch 1e-4 (measured: 9.0e-7 FRVSR, 4.0e-6 G, 3.0e-6 D); against
-# JAX's global batch G 5e-3 and D 1e-4 (measured 5.1e-4 and 1.1e-5: G reads
-# D after D's Adam step, whose noise-level elements step either way). A
-# gradient summed over the ranks and not averaged is 1.0 away; with D's
-# BatchNorm backward left on each rank, D's is 1.17 away (conv_in's bias)
-# and G's 0.32.
+# doubled batch 1e-4 (measured: 6.0e-7 FRVSR; at D's lr 0 G 1.6e-6 and D
+# 7.1e-6); against JAX's global batch G 5e-3 and D 1e-4 (measured at D's
+# lr 0: G 2.8e-6, D 9.5e-6). A gradient summed over the ranks and not
+# averaged is 1.0 away; with D's BatchNorm backward left on each rank, D's
+# is 1.17 away (conv_in's bias) and G's 0.34.
 _GRAD_REL_ONE = 1e-4
 _GRAD_REL_JAX = {"g": 5e-3, "d": 1e-4}
+# G's gradient at D's nonzero lr, against one process and against JAX: G
+# reads D after D's Adam step, and D's elements whose gradient sits at
+# fp32's noise level take their lr-sized step one way or the other by the
+# order of summation, which moves G's gradient by about 5e-4 (measured
+# 5.14e-4 against either). So G is held there at the JAX band only.
+_GRAD_REL_G_AFTER_D = _GRAD_REL_JAX["g"]
 
 
 def _launch(tmp_path, code, *args, world=2, timeout=240):
@@ -206,12 +228,15 @@ _GAN_WORKER = """
     torch.set_num_threads(1)
     from tecogan_tpu_torch.parallel import dist
     sys.path.insert(0, sys.argv[4])
-    from test_torch_dist import _gan_step
+    from test_torch_dist import _LR_D, _gan_step
     dist.init_distributed()
     gt = np.load(sys.argv[1])[dist.shard_rows(2, dist.rank(),
                                               dist.world())]
-    nets, logs = _gan_step(gt, json.loads(sys.argv[2]))
-    torch.save(nets, f"{sys.argv[3]}/nets_{dist.rank()}.pt")
+    logs = []
+    for run, lr_d in enumerate(_LR_D):
+        nets, run_logs = _gan_step(gt, json.loads(sys.argv[2]), lr_d)
+        torch.save(nets, f"{sys.argv[3]}/nets_{run}_{dist.rank()}.pt")
+        logs.append(run_logs)
     print("RESULT:" + json.dumps({"logs": logs}))
     dist.shutdown()
 """
@@ -229,16 +254,19 @@ _OPT_G = {"lr": _LR, "betas": [0.9, 0.999]}
 _OPT_D = {"lr": _LR, "betas": [0.5, 0.999],
           "lr_schedule": {"type": "MultiStepLR", "milestones": [1],
                           "gamma": 0.5}}
+# the GAN step runs twice in one launch: (a) at D's lr 0, so that G reads
+# the same D in every run, and (b) at D's lr as shipped
+_LR_D = (0.0, _LR)
 
 
-def _gan_step(gt, kw):
-    """One port TecoGAN step on the uint8 batch ``gt``: (the nets' state
-    dicts, the logs as floats)."""
+def _gan_step(gt, kw, lr_d):
+    """One port TecoGAN step on the uint8 batch ``gt`` with D's Adam at
+    ``lr_d``: (the nets' state dicts, the logs as floats)."""
     from tecogan_tpu_torch.models import schedules, steps
 
     net_g, net_d = _gan_nets()
     og, sg = schedules.make_adam(_OPT_G, net_g.parameters())
-    od, sd = schedules.make_adam(_OPT_D, net_d.parameters())
+    od, sd = schedules.make_adam({**_OPT_D, "lr": lr_d}, net_d.parameters())
     state = steps.tecogan_init_state(net_g, net_d, og, od)
     state, logs = steps.tecogan_train_step(
         state, {"gt": torch.from_numpy(gt)},
@@ -261,9 +289,11 @@ def _jax_grads(opt_state, beta1):
 
 def test_gan_step_two_ranks_matches_jax_global_batch(tmp_path):
     """One TecoGAN step (STNet, ping-pong, the adaptive vote at its 0.4)
-    at 1 clip a rank: the logs, D's BatchNorm running stats and the vote
-    against ``jax.jit(tecogan_train_step)`` at 2 clips, the weights
-    against the port's one-process step at 2 clips."""
+    at 1 clip a rank, at D's lr 0 (a) and at D's lr (b): the logs, D's
+    BatchNorm running stats and the vote against
+    ``jax.jit(tecogan_train_step)`` at 2 clips, the weights against the
+    port's one-process step at 2 clips. G's weights and its tight gradient
+    band are held in (a) only: in (b) G reads D after D's Adam step."""
     _cb = {"type": "CB", "weight": 1, "reduction": "mean"}
     kw = dict(scale=4, degradation="BD", sigma=1.5, tempo_extent=3,
               pixel_crit=_cb, warping_crit=_cb,
@@ -284,62 +314,80 @@ def test_gan_step_two_ranks_matches_jax_global_batch(tmp_path):
         net_g, net_d = _gan_nets()
         tx_g, _ = jsched.make_adam(_OPT_G)
         tx_d, sched_d = jsched.make_adam(_OPT_D, external_lr=True)
-        jstate = jsteps.tecogan_init_state(
+        jstate0 = jsteps.tecogan_init_state(
             jax.tree.map(jnp.asarray, convert.jax_from_state_dict(
                 net_g.state_dict(), 2, 4)),
             jax.tree.map(jnp.asarray, convert.jax_from_d_state_dict(
                 net_d.state_dict(), 32)), tx_g, tx_d)
-        jstate, lj = jax.jit(functools.partial(
-            jsteps.tecogan_train_step,
-            cfg_g=JCfg(nf=16, nb=2, scale=4, degradation="BD"),
-            cfg_d=JSTNet(spatial_size=32, degradation="BD", scale=4),
-            tcfg=jsteps.TrainConfig(**kw), tx_g=tx_g, tx_d=tx_d,
-            sched_d=sched_d))(jstate, {"gt": jnp.asarray(gt)})
-        one, one_logs = _gan_step(gt, kw)
+
+        def jstep(state, batch, lr_scale):  # one compile for both lrs
+            return jsteps.tecogan_train_step(
+                state, batch, cfg_g=JCfg(nf=16, nb=2, scale=4,
+                                         degradation="BD"),
+                cfg_d=JSTNet(spatial_size=32, degradation="BD", scale=4),
+                tcfg=jsteps.TrainConfig(**kw), tx_g=tx_g, tx_d=tx_d,
+                sched_d=lambda step: lr_scale * sched_d(step))
+
+        jstep = jax.jit(jstep)
+        jax_runs = [jstep(jstate0, {"gt": jnp.asarray(gt)},
+                          jnp.float32(lr / _LR)) for lr in _LR_D]
+        ones = [_gan_step(gt, kw, lr) for lr in _LR_D]
     finally:
         th.join()
     ranks = box["ranks"]
-
-    # the ranks agree bit for bit, the vote included
-    assert ranks[0]["logs"] == ranks[1]["logs"]
-    nets = [torch.load(tmp_path / f"nets_{r}.pt") for r in (0, 1)]
-    for part in nets[0]:
-        assert all(torch.equal(nets[0][part][k], nets[1][part][k])
-                   for k in nets[0][part])
-    logs = ranks[0]["logs"]
-    assert logs["n_upd_D"] == float(lj["n_upd_D"]) == 1.0  # the vote passed
-    for k in jsteps.TECOGAN_LOG_KEYS:
-        np.testing.assert_allclose(logs[k], float(lj[k]), rtol=1e-4,
-                                   atol=1e-6, err_msg=k)
-        np.testing.assert_allclose(logs[k], one_logs[k], rtol=1e-5,
-                                   atol=1e-7, err_msg=k)
-    # D's BatchNorm running stats: the global batch's, three forwards
-    want_d = convert.d_state_dict_from_jax(
-        jax.tree.map(np.asarray, jstate["d"]), 32)
-    for k, v in nets[0]["d"].items():
-        if "running" in k:
-            np.testing.assert_allclose(v.numpy(), want_d[k], rtol=0,
-                                       atol=1e-5, err_msg=k)
     start = {"g": net_g.state_dict(), "d": net_d.state_dict()}
-    for net in ("g", "d"):
-        for k, v in nets[0][net].items():
+
+    for run, lr_d in enumerate(_LR_D):
+        (jstate, lj), (one, one_logs) = jax_runs[run], ones[run]
+        # the ranks agree bit for bit, the vote included
+        assert ranks[0]["logs"][run] == ranks[1]["logs"][run]
+        nets = [torch.load(tmp_path / f"nets_{run}_{r}.pt") for r in (0, 1)]
+        for part in nets[0]:
+            assert all(torch.equal(nets[0][part][k], nets[1][part][k])
+                       for k in nets[0][part])
+        logs = ranks[0]["logs"][run]
+        assert logs["n_upd_D"] == float(lj["n_upd_D"]) == 1.0  # the vote
+        for k in jsteps.TECOGAN_LOG_KEYS:
+            np.testing.assert_allclose(logs[k], float(lj[k]), rtol=1e-4,
+                                       atol=1e-6, err_msg=f"{run} {k}")
+            np.testing.assert_allclose(logs[k], one_logs[k], rtol=1e-5,
+                                       atol=1e-7, err_msg=f"{run} {k}")
+        # D's BatchNorm running stats: the global batch's, three forwards
+        want_d = convert.d_state_dict_from_jax(
+            jax.tree.map(np.asarray, jstate["d"]), 32)
+        for k, v in nets[0]["d"].items():
+            if "running" in k:
+                np.testing.assert_allclose(v.numpy(), want_d[k], rtol=0,
+                                           atol=1e-5, err_msg=f"{run} {k}")
+        # the gradients: the mean over the ranks is the global batch's,
+        # the port's one process's and JAX's (Adam's first step, about lr
+        # times the gradient's sign, would hide a gradient off by a factor)
+        jax_grads = {
+            "g": convert.state_dict_from_jax(
+                _jax_grads(jstate["opt_g"], _OPT_G["betas"][0]), 2, 4),
+            "d": convert.d_state_dict_from_jax(
+                _jax_grads(jstate["opt_d"], _OPT_D["betas"][0]), 32)}
+        rel_one = {"g": _GRAD_REL_ONE if lr_d == 0 else _GRAD_REL_G_AFTER_D,
+                   "d": _GRAD_REL_ONE}
+        rel_jax = {"g": _GRAD_REL_JAX["g"] if lr_d == 0
+                   else _GRAD_REL_G_AFTER_D, "d": _GRAD_REL_JAX["d"]}
+        for net in ("g", "d"):
+            got = nets[0][f"{net}_grad"]
+            _assert_grads_close(got, one[f"{net}_grad"], rel_one[net],
+                                f"{net} against one process, run {run}")
+            _assert_grads_close(got, {k: jax_grads[net][k] for k in got},
+                                rel_jax[net], f"{net} against JAX, run {run}")
+        # the Adam updates: G's in (a), D's in (b); D in (a) stays put
+        held = "g" if lr_d == 0 else "d"
+        for k, v in nets[0][held].items():
             if v.is_floating_point() and "running" not in k:
-                _assert_adam_close(v.numpy(), one[net][k].numpy(),
-                                   start[net][k].numpy(), 1, f"{net} {k}")
-    # the gradients: the mean over the ranks is the global batch's, the
-    # port's one process's and JAX's (Adam's first step, about lr times
-    # the gradient's sign, would hide a gradient off by a factor)
-    jax_grads = {
-        "g": convert.state_dict_from_jax(
-            _jax_grads(jstate["opt_g"], _OPT_G["betas"][0]), 2, 4),
-        "d": convert.d_state_dict_from_jax(
-            _jax_grads(jstate["opt_d"], _OPT_D["betas"][0]), 32)}
-    for net in ("g", "d"):
-        got = nets[0][f"{net}_grad"]
-        _assert_grads_close(got, one[f"{net}_grad"], _GRAD_REL_ONE,
-                            f"{net} against one process")
-        _assert_grads_close(got, {k: jax_grads[net][k] for k in got},
-                            _GRAD_REL_JAX[net], f"{net} against JAX")
+                _assert_adam_close(v.numpy(), one[held][k].numpy(),
+                                   start[held][k].numpy(), 1,
+                                   f"{held} {k}, run {run}")
+        if lr_d == 0:
+            for k, v in nets[0]["d"].items():
+                if "running" not in k and "num_batches" not in k:
+                    assert torch.equal(v, start["d"][k]), k
 
 
 # -------------------------------------------------------------- test mode
