@@ -149,6 +149,23 @@ Phases, each fatal on failure (nonzero exit, no result line):
    ``tools/perf_canary.json``: bf16 4x BD FPS and FRVSR and TecoGAN
    ms/step at the reference batch geometry, each inside its band; K1, K2,
    K3+K4 and K4 launched by it.
+22. the synthetic campaign (tools/run_synth_campaign.py) through its stage
+   functions, each CLI a subprocess on the card, at full width (nf=64,
+   nb=10, crop 128, batch 4, tempo 10, bf16) with depth cut: 8 training
+   clips of 16 frames at 192^2 and 2 held-out sequences of 10 frames at
+   256x448 made from the seed, FRVSR for 16 iterations, TecoGAN
+   warm-started from it for 8 (every iteration logged), then the eval
+   (the bicubic baseline on the card, test mode of both models, the
+   official harness): every stage's checkpoints and summary.json with its
+   three rows, the harness's frame counts 2 x (10 - 4) and 2 x (10 - 5)
+   for tOF, every logged loss finite, each CLI's kernel launches (the
+   line it logs at its end) equal to its structure; before it, bit for
+   bit their plain versions: K1 at the eval's fp32 (1,3,256,448), K2 and
+   K3+K4 at the batch of 4 (4,3,128,128), K3 alone at TecoGAN's fake
+   STNet assembly (48,3,128,128), K2 and K4 alone at the warping loss's
+   (36,3,32,32) and (72,3,32,32); on a failure, the stages' output; after it
+   infer_streams on [0, 0] (4 streams of 16 frames at 134x320, bf16) bit
+   for bit infer_sequence_batch, K1 once per block and frame.
 
 Every kernel is timed beside its plain version, its device time (from
 torch.profiler), one PyTorch library call that computes the same function
@@ -172,6 +189,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from tecogan_tpu_torch.ops import kernel_launches, reset_kernel_launches
 
 SEED = 0
 NF, NB, SCALE = 64, 10, 4
@@ -1135,7 +1154,7 @@ def phase_slice(ckpt, rng):
     ]
     n_pad = model.opt["test"]["num_pad_front"]
     expected = 0
-    _reset_counts()
+    reset_kernel_launches()
     for i, data in enumerate(requests):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1149,7 +1168,7 @@ def phase_slice(ckpt, rng):
               f"first request includes warm-up)")
         _require(out.dtype == np.uint8 and out.shape == (t, 536, 1280, 3),
                  f"request {i}: {out.dtype} {out.shape}")
-    counts = _read_counts()
+    counts = kernel_launches()
     print(f"launches in the main path: {counts}, frames warped: {expected}")
     _require(counts == {**dict.fromkeys(counts, 0), "K1": expected},
              "the main path did not launch K1 (not in band mode), and only "
@@ -1523,10 +1542,10 @@ def phase_test_mode(card):
                  "cv2")):
             exp, yml, n_pad = _test_mode_opt(tmp, label, deg, test_set,
                                              f"{tmp}/ckpt/*.npz", metric)
-            _reset_counts()
+            reset_kernel_launches()
             with _blocked(block):
                 records, secs, warns = _cli(exp, yml, "0")
-            counts = _read_counts()
+            counts = kernel_launches()
             expected = sum(_frames_warped(r["frames"] + n_pad, 16)
                            for r in records)
             print(f"test mode {label}: launches {counts}, frames warped "
@@ -1667,37 +1686,6 @@ def phase_fps(model, card, variants, streams=1):
     return fps
 
 
-def _kernel_counters():
-    from tecogan_tpu_torch.ops.warp_cuda import (warp_planes,
-                                                 warp_planes_window, warp_rgb)
-    from tecogan_tpu_torch.ops.warp_phases import warp_phases
-    from tecogan_tpu_torch.ops.warp_vjp import warp_dflow, warp_dimage
-
-    return {"K1": warp_planes, "K1 window": warp_planes_window,
-            "K2": warp_rgb, "K3": warp_dimage, "K4": warp_dflow,
-            "K5": warp_phases}
-
-
-def _reset_counts():
-    """Set every kernel's launch count to 0."""
-    counters = _kernel_counters()
-    for c in counters.values():
-        c.launches = 0
-    counters["K1"].band_launches = 0
-    counters["K3"].dflow_launches = 0
-
-
-def _read_counts():
-    """Every kernel's launch count; "K1 band" counts K1's band-mode
-    launches, which "K1" includes, and "K3+K4" K3's launches that also
-    computed the flow adjoint, which "K3" includes ("K4" counts K4's own
-    launches)."""
-    counters = _kernel_counters()
-    return {**{k: c.launches for k, c in counters.items()},
-            "K1 band": counters["K1"].band_launches,
-            "K3+K4": counters["K3"].dflow_launches}
-
-
 def _uint8_diff(a, b):
     """(max |a - b|, share of values that differ) of two uint8 tensors."""
     d = (a.int() - b.int()).abs()
@@ -1721,10 +1709,10 @@ def phase_p16(model, card, rng):
     lr = torch.from_numpy(_smooth_frames(rng, 64, 134, 320))[None].to(
         model.device)
     torch.cuda.synchronize()
-    _reset_counts()
+    reset_kernel_launches()
     got = infer_sequence_batch(model.net_g, lr, cfg, chunk=64)
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = kernel_launches()
     print(f"packed16 path launches (64 frames warped): {counts}")
     _require(counts == {**dict.fromkeys(counts, 0), "K5": 64},
              "the packed16 path did not launch K5, and only K5, once per "
@@ -1774,11 +1762,11 @@ def phase_fold(model, card, rng):
                                     for _ in range(FOLD_STREAMS)])).to(
         model.device)
     torch.cuda.synchronize()
-    _reset_counts()
+    reset_kernel_launches()
     got = infer_sequence_batch(model.net_g, lr, model.cfg_g, chunk=64,
                                fold_streams=True)
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = kernel_launches()
     print(f"fold_streams path launches ({FOLD_STREAMS} streams x 64 "
           f"frames): {counts}")
     _require(counts == {**dict.fromkeys(counts, 0), "K1": 64,
@@ -1979,7 +1967,7 @@ def phase_train(rng, card):
                    for _ in range(TRAIN_STEPS)]
         w0 = {k: v.clone() for k, v in model.net_g.state_dict().items()}
         torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
+        reset_kernel_launches()
         times = []
         for k, gt in enumerate(batches):
             batch = model.prepare_training_data({"gt": gt})
@@ -1995,7 +1983,7 @@ def phase_train(rng, card):
                   f"({times[-1]:.2f} ms, CUDA events)")
             _require(all(math.isfinite(float(v)) for v in logs.values()),
                      f"step {k}: non-finite logs {logs}")
-        launches = _read_counts()
+        launches = kernel_launches()
         per_step = _expected_launches(TRAIN_T, cfg.remat)
         expected = {**dict.fromkeys(launches, 0),
                     **{k: TRAIN_STEPS * v for k, v in per_step.items()}}
@@ -2386,7 +2374,7 @@ def phase_gan_train(rng, card):
                     for k, v in model.net_d.named_parameters()}
 
         torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
+        reset_kernel_launches()
         times, votes = [], []
         for k, gt in enumerate(batches):
             batch = model.prepare_training_data({"gt": gt})
@@ -2410,7 +2398,7 @@ def phase_gan_train(rng, card):
                      f"{vals['distance']}), {moved} of {len(before)} D "
                      f"tensors moved")
             votes.append(upd == 1.0)
-        launches = _read_counts()
+        launches = kernel_launches()
         t_all = 2 * te - 1
         per_step = _gan_expected_launches(t_all, cfg_g.remat)
         expected = {**dict.fromkeys(launches, 0),
@@ -2818,7 +2806,7 @@ def _cli_train(exp, opt, probe=None):
     with open(yml, "w") as f:
         f.write(safe_dump(opt))
     probe = probe or _TrainProbe()
-    _reset_counts()
+    reset_kernel_launches()
     with _LogLines() as lines, probe:
         t0 = time.perf_counter()
         model = cli_main(["--exp_dir", exp, "--mode", "train", "--opt", yml,
@@ -2826,7 +2814,7 @@ def _cli_train(exp, opt, probe=None):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    return model, list(lines), _read_counts(), secs
+    return model, list(lines), kernel_launches(), secs
 
 
 def _loop_ms(probe, start_iter, skip):
@@ -3426,13 +3414,13 @@ def phase_serving(card, params):
                 f"{label}: the embedded weights differ from the checkpoint's")
             cfg = FRNetConfig(nf=NF, nb=NB, scale=SCALE, compute_dtype=dtype,
                               packed16=bool(extra))
-            _reset_counts()
+            reset_kernel_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             got = run(back, x)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
-            counts = _read_counts()
+            counts = kernel_launches()
             kernel = "K5" if extra else "K1"
             _require(counts == {**dict.fromkeys(counts, 0), kernel: SERVE_T},
                      f"{label} artifact: launches {counts}, expected "
@@ -3470,11 +3458,11 @@ def phase_serving(card, params):
                 ("--ckpt override", state_dict_from_jax(params_b),
                  ["--ckpt", other]))):
             out = f"{tmp}/out{run_i}"
-            _reset_counts()
+            reset_kernel_launches()
             t0 = time.perf_counter()
             written = serve.main([art, f"{tmp}/in", out, "--quiet", *args])
             secs = time.perf_counter() - t0
-            counts = _read_counts()
+            counts = kernel_launches()
             _require(written == {k: SERVE_SEQ_T for k in seqs}
                      and counts == {**dict.fromkeys(counts, 0),
                                     "K1": SERVE_ART_T * len(seqs)},
@@ -3538,10 +3526,10 @@ def phase_profile_mode(card):
     argv = ["--mode", "profile", "--opt", yml, "--gpu_ids", "0", "--lr_size",
             "3x134x320", "--test_speed"]
     with tempfile.TemporaryDirectory() as tmp:
-        _reset_counts()
+        reset_kernel_launches()
         with _LogLines() as lines:
             out = cli_main(["--exp_dir", tmp, *argv])
-        counts = _read_counts()
+        counts = kernel_launches()
         report = [ln for ln in "\n".join(lines).splitlines()
                   if ln.strip().startswith(("Resolution", "Module", "FLOPs",
                                             "Parameters", "Overall",
@@ -3662,9 +3650,9 @@ def phase_lpips(card):
                 _smooth_frames(rng, TM_FRAMES, *TM_GT)))
         os.chdir(exp)
         try:
-            _reset_counts()
+            reset_kernel_launches()
             records, secs, warns = _cli(exp, yml, "0")
-            counts = _read_counts()
+            counts = kernel_launches()
             warped = len(seqs) * _frames_warped(TM_FRAMES + n_pad, 16)
             _require(not warns and counts == {**dict.fromkeys(counts, 0),
                                               "K1": warped},
@@ -3952,10 +3940,10 @@ def phase_sp(card, params):
             ref = infer_sequence(net, lr, cfg, SP_CHUNK)
             for k in SP_SHARDS:
                 torch.cuda.synchronize()
-                _reset_counts()
+                reset_kernel_launches()
                 got = infer_sequence_sp(net, lr, cfg, [dev] * k, SP_CHUNK)
                 torch.cuda.synchronize()
-                counts = _read_counts()
+                counts = kernel_launches()
                 _require(counts == {**dict.fromkeys(counts, 0),
                                     "K1 window": SP_FRAMES * k},
                          f"sharded inference (k={k}, {dtype}): launches "
@@ -4039,7 +4027,7 @@ def _dp_frvsr(out, mixed):
         # every rank on card 0: one id per rank
         opt["device_ids"] = [0] * dist.world()
         model = VSRModel(opt)
-    _reset_counts()
+    reset_kernel_launches()
     logs, ms = [], []
     for gt in batches:
         t0 = time.perf_counter()
@@ -4047,7 +4035,7 @@ def _dp_frvsr(out, mixed):
         logs.append(model.get_running_log(model.state))
         ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = kernel_launches()
     torch.save({"g": model.net_g.state_dict(), "g_grad": _grads(model.net_g)},
                out)
     return logs, counts, ms
@@ -4083,10 +4071,10 @@ def _dp_gan(g_path, out, d_lr_zero):
         opt["device_ids"] = [0] * dist.world()
         model = VSRGANModel(opt)
     d_start = {k: v.clone() for k, v in model.net_d.state_dict().items()}
-    _reset_counts()
+    reset_kernel_launches()
     logs = model.train(model.prepare_training_data({"gt": gt}))
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = kernel_launches()
     torch.save({"g": model.net_g.state_dict(), "d": model.net_d.state_dict(),
                 "g_grad": _grads(model.net_g), "d_grad": _grads(model.net_d),
                 "d_start": d_start}, out)
@@ -4396,11 +4384,11 @@ def phase_bench(card):
     _require(k1 == BENCH_RUNS * _frames_warped(64, 64),
              f"bench_torch.py launched K1 {k1} times, expected "
              f"{BENCH_RUNS * _frames_warped(64, 64)}")
-    _reset_counts()
+    reset_kernel_launches()
     table = io.StringIO()
     with contextlib.redirect_stdout(table):
         ok = bench_suite.check_canary()
-    counts = _read_counts()
+    counts = kernel_launches()
     print(table.getvalue(), end="")
     print(f"perf canary launches: {counts}; phase 21 took "
           f"{time.perf_counter() - start:.1f} s on {card}")
@@ -4409,6 +4397,257 @@ def phase_bench(card):
     for key in ("K1", "K2", "K3+K4", "K4"):
         _require(counts[key] > 0, f"the canary launched no {key}")
     return counts
+
+# phase 22: the synthetic campaign at full width (nf=64, nb=10, crop 128,
+# batch 4, tempo 10, bf16), depth cut: 8 training clips of 16 frames at
+# 192^2, 2 held-out sequences of 10 frames at 256x448, FRVSR 16 iterations,
+# TecoGAN 8
+CAMPAIGN_DATA = dict(n_train=8, t_train=16, hw_train=(192, 192), n_test=2,
+                     t_test=10, hw_test=(256, 448))
+CAMPAIGN_ITERS = (16, 8)
+# the warps of the batch of 4: HR frames, the fake STNet assembly's end
+# slots (ASSEMBLY_WARP_SHAPE at batch 4), the warping loss's LR pairs (4 x 9
+# in FRVSR, 4 x 18 after TecoGAN's ping-pong)
+CAMPAIGN_HR_SHAPE = (4, 3, 128, 128)
+CAMPAIGN_ASSEMBLY_SHAPE = (48, 3, 128, 128)
+CAMPAIGN_LR_PAIR_SHAPES = ((36, 3, 32, 32), (72, 3, 32, 32))
+# infer_streams: streams x frames of LR, bf16
+STREAMS_SHAPE = (4, 16, 134, 320)
+
+
+def _campaign_kernels():
+    """The kernels at the campaign's shapes, bit for bit their plain
+    versions, image and flow f32/bf16, smooth-ish and wide flows: K1 at the
+    eval's fp32 call (1,3,256,448); K2 and K3+K4 at the HR warps of the
+    batch of 4 (4,3,128,128); K3 alone at TecoGAN's fake STNet assembly
+    (CAMPAIGN_ASSEMBLY_SHAPE, more passes of its cooperative grid than
+    phase 12 holds); K2 and K4 alone at the warping loss's LR pairs of
+    FRVSR and TecoGAN (CAMPAIGN_LR_PAIR_SHAPES)."""
+    import torch
+
+    from tecogan_tpu_torch.ops.warp_cuda import (stride_grid, tile_plan,
+                                                 warp_planes,
+                                                 warp_planes_reference,
+                                                 warp_rgb)
+    from tecogan_tpu_torch.ops.warp_vjp import (_dimage_slots,
+                                                dimage_resident_blocks,
+                                                warp_dflow,
+                                                warp_dflow_reference,
+                                                warp_dimage,
+                                                warp_dimage_dflow,
+                                                warp_dimage_reference)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    dts = (torch.float32, torch.bfloat16)
+    counts = dict.fromkeys(("K1", "K2", "K3", "K3+K4", "K4"), 0)
+
+    def inputs(shape, xd, fd, sigma):
+        n, c, h, w = shape
+        x = torch.rand(shape, generator=gen, device=dev).to(xd)
+        g = torch.randn(shape, generator=gen, device=dev).to(xd)
+        fl = _vjp_flow(gen, dev, n, h, w, sigma).to(fd)
+        return x, g, fl, f"{shape} x={xd} flow={fd} sigma={sigma}"
+
+    for sigma in (6.0, 30.0, 300.0):
+        planes = torch.randn((1, 3, 256, 448), generator=gen, device=dev)
+        flow = (torch.randn((1, 2, 256, 448), generator=gen, device=dev)
+                * sigma).permute(0, 2, 3, 1)
+        got = warp_planes(planes, flow)
+        torch.cuda.synchronize()
+        _require(torch.equal(got, warp_planes_reference(planes, flow)),
+                 f"K1 at (1,3,256,448) fp32 sigma={sigma} differs from its "
+                 f"plain version")
+        counts["K1"] += 1
+        for xd in dts:
+            for fd in dts:
+                x, g, fl, tag = inputs(CAMPAIGN_HR_SHAPE, xd, fd, sigma)
+                got = warp_rgb(x, fl)
+                dx, df = warp_dimage_dflow(g, x, fl)
+                torch.cuda.synchronize()
+                _require(_equal(got, warp_planes_reference(x, fl)),
+                         f"K2 differs from its plain version: {tag}")
+                _require(_equal((dx, df), (warp_dimage_reference(g, fl, xd),
+                                           warp_dflow_reference(g, x, fl))),
+                         f"K3+K4 differs from its plain versions: {tag}")
+                counts["K2"] += 1
+                counts["K3+K4"] += 1
+                x, g, fl, tag = inputs(CAMPAIGN_ASSEMBLY_SHAPE, xd, fd, sigma)
+                got = warp_dimage(g, fl, xd)
+                torch.cuda.synchronize()
+                _require(_equal(got, warp_dimage_reference(g, fl, xd)),
+                         f"K3 alone differs from its plain version: {tag}")
+                counts["K3"] += 1
+                for shape in CAMPAIGN_LR_PAIR_SHAPES:
+                    x, g, fl, tag = inputs(shape, xd, fd, sigma)
+                    got = warp_rgb(x, fl)
+                    df = warp_dflow(g, x, fl)
+                    torch.cuda.synchronize()
+                    _require(_equal(got, warp_planes_reference(x, fl)),
+                             f"K2 differs from its plain version: {tag}")
+                    _require(_equal(df, warp_dflow_reference(g, x, fl)),
+                             f"K4 alone differs from its plain version: "
+                             f"{tag}")
+                    counts["K2"] += 1
+                    counts["K4"] += 1
+    n, c, h, w = CAMPAIGN_ASSEMBLY_SHAPE
+    resident = dimage_resident_blocks("tecogan_warp_dimage_bf16_bf16_bf16",
+                                      0, c)
+    grid = stride_grid(n, c, h, w, min(resident, _dimage_slots(0)))
+    tiles, _ = tile_plan(n, h, w, steps=1)
+    passes = math.prod(-(-t // g) for t, g in zip(tiles, grid))
+    print(f"campaign shapes, {sum(counts.values())} cases bit for bit their "
+          f"plain versions ({counts}): K1 (1,3,256,448) fp32; K2 and K3+K4 "
+          f"{CAMPAIGN_HR_SHAPE}; K3 alone {CAMPAIGN_ASSEMBLY_SHAPE} (bf16: "
+          f"{resident} co-resident blocks, grid {grid} over tiles {tiles}, "
+          f"{passes} passes); K2 and K4 alone {CAMPAIGN_LR_PAIR_SHAPES}")
+
+
+def _cli_launches(log_path):
+    """The ``kernel launches: {...}`` line the CLI logs at its end."""
+    with open(log_path) as f:
+        lines = [ln for ln in f if "kernel launches: " in ln]
+    _require(len(lines) == 1, f"{log_path}: {len(lines)} launch lines")
+    return json.loads(lines[0].split("kernel launches: ", 1)[1])
+
+
+def _campaign_stages(rsc, wd):
+    """Phase 22's stages in ``wd`` and their checks. Returns the summary,
+    the CLIs' launches and each stage's seconds."""
+    base_opt = rsc._base_opt
+
+    def every_iteration(*a, **k):
+        # every iteration logged, two validations a run (the recipe's
+        # cadence, 8 and 6 a run, cut with the depth)
+        opt = base_opt(*a, **k)
+        opt["logger"]["log_freq"] = 1
+        opt["test"]["test_freq"] = opt["train"]["total_iter"] // 2
+        return opt
+
+    fr_iter, gan_iter = CAMPAIGN_ITERS
+    total, stages = {}, {}
+    rsc._base_opt = every_iteration
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        stages[name] = round(time.perf_counter() - t0, 1)
+        return res
+
+    try:
+        timed("data", rsc.stage_data, wd, **CAMPAIGN_DATA)
+        fr_ckpt = timed("frvsr", rsc.stage_frvsr, wd, fr_iter)
+        gan_ckpt = timed("tecogan", rsc.stage_tecogan, wd, fr_ckpt,
+                         gan_iter)
+        summary = timed("eval", rsc.stage_eval, wd, fr_iter, gan_iter)
+    finally:
+        rsc._base_opt = base_opt
+    gan_dir = os.path.dirname(gan_ckpt)
+    for path in (fr_ckpt, gan_ckpt,
+                 os.path.join(gan_dir, f"D_iter{gan_iter}.npz"),
+                 os.path.join(wd, "eval", "summary.json")):
+        _require(os.path.exists(path), f"campaign: no {path}")
+    n_test, t_test = CAMPAIGN_DATA["n_test"], CAMPAIGN_DATA["t_test"]
+    want = {"PSNR": n_test * (t_test - 4), "SSIM": n_test * (t_test - 4),
+            "tOF": n_test * (t_test - 5)}
+    _require(sorted(summary) == sorted(
+        ["bicubic", "FRVSR_Synth_4xSR", "TecoGAN_Synth_4xSR"]),
+        f"campaign summary rows {sorted(summary)}")
+    for row, metrics in summary.items():
+        _require({k: v["frames"] for k, v in metrics.items()} == want
+                 and all(math.isfinite(v["frame_avg"])
+                         for v in metrics.values()),
+                 f"campaign {row}: {metrics}, frames expected {want}")
+    # K1 per frame warped: each 10-frame sequence with its 5 padding
+    # frames, in every validation and in each test run
+    t = _frames_warped(t_test + 5, 16)
+    per = {"FRVSR": (_expected_launches(10, True), fr_iter),
+           "TecoGAN": (_gan_expected_launches(19, True), gan_iter)}
+    for name, (per_iter, iters) in per.items():
+        exp = os.path.join(wd, f"{name}_Synth_4xSR")
+        with open(os.path.join(exp, "train.log")) as f:
+            logs = _train_log_lines(
+                [ln.split("[INFO]: ", 1)[-1].rstrip("\n") for ln in f])
+        _require([it for _, it, *_ in logs] == list(range(1, iters + 1))
+                 and all(math.isfinite(v) for *_, lg in logs
+                         for v in lg.values()),
+                 f"campaign {name}: the losses of {len(logs)} log lines "
+                 f"({[lg for *_, lg in logs[-2:]]})")
+        counts = _cli_launches(os.path.join(exp, "train.log"))
+        want = {**dict.fromkeys(counts, 0), "K1": 2 * n_test * t,
+                **{k: iters * per_iter[k]
+                   for k in ("K2", "K3", "K3+K4", "K4")}}
+        _require(counts == want, f"campaign {name} train: launches "
+                 f"{counts}, expected {want}")
+        tested = _cli_launches(os.path.join(wd, "eval",
+                                            f"{name}_Synth_4xSR",
+                                            "test.log"))
+        _require(tested == {**dict.fromkeys(tested, 0), "K1": n_test * t},
+                 f"campaign {name} test: launches {tested}")
+        for key, count in counts.items():
+            total[key] = total.get(key, 0) + count + tested[key]
+    return summary, total, stages
+
+
+def phase_campaign(card, params):
+    """The synthetic campaign (``tools/run_synth_campaign.py``) through its
+    stage functions, each CLI a subprocess on the card: data, FRVSR from the
+    seed, TecoGAN warm-started from it, eval (bicubic baseline, test mode of
+    both models, the official harness). Requires every stage's artifacts,
+    the harness's frame counts, finite losses on every iteration's log line
+    (the phase logs every iteration), each CLI's launches equal to its
+    structure; then ``infer_streams`` on [0, 0] bit for bit
+    ``infer_sequence_batch``. Returns the launches of both."""
+    import torch
+
+    from tecogan_tpu_torch.models.convert import state_dict_from_jax
+    from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
+                                                   infer_sequence_batch)
+    from tecogan_tpu_torch.parallel import infer_streams
+    from tecogan_tpu_torch.tools import run_synth_campaign as rsc
+
+    start = time.perf_counter()
+    _campaign_kernels()
+    with tempfile.TemporaryDirectory() as wd, contextlib.redirect_stdout(
+            io.StringIO()) as out:
+        try:
+            summary, total, stages = _campaign_stages(rsc, wd)
+        except Exception:
+            # the stages' output, the harness's included, goes with the
+            # workdir otherwise
+            print(out.getvalue()[-4000:], file=sys.stderr)
+            raise
+    print(out.getvalue()[-1500:], end="")
+    print(f"campaign summary: {json.dumps(summary)}")
+    print(f"campaign launches (FRVSR {CAMPAIGN_ITERS[0]} + TecoGAN "
+          f"{CAMPAIGN_ITERS[1]} iterations, validations and test runs, in "
+          f"the CLI processes): {total}; the stages took {stages} s on "
+          f"{card}")
+
+    # the stream split: 4 streams in 2 blocks on the one card
+    cfg = FRNetConfig(nf=NF, nb=NB, scale=SCALE, degradation="BD",
+                      compute_dtype="bfloat16")
+    net = FRNet.from_state_dict(cfg, state_dict_from_jax(params, NB, SCALE),
+                                device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    n, t, h, w = STREAMS_SHAPE
+    lr = torch.rand((n, t, h, w, 3), generator=gen, device="cuda")
+    want = infer_sequence_batch(net, lr, cfg, chunk=16)
+    reset_kernel_launches()
+    got = infer_streams(net, lr, cfg, [0, 0], chunk=16)
+    torch.cuda.synchronize()
+    counts = kernel_launches()
+    _require(got.shape == want.shape and torch.equal(got, want),
+             f"infer_streams on [0, 0] differs from infer_sequence_batch: "
+             f"{_uint8_diff(got, want)}")
+    # K1 warps a block's streams together: once per block and frame
+    _require(counts == {**dict.fromkeys(counts, 0), "K1": 2 * t},
+             f"infer_streams launches {counts}, expected K1 {2 * t}")
+    print(f"infer_streams on [0, 0], {n} x {t} frames of {h}x{w} bf16: "
+          f"bit-identical to infer_sequence_batch, K1 {counts['K1']} "
+          f"launches; phase 22 took {time.perf_counter() - start:.1f} s")
+    total["K1"] += counts["K1"]
+    return total
 
 
 def _start_weights(opt):
@@ -4484,6 +4723,8 @@ def main() -> int:
     for key, count in phase_dp(card, params).items():
         launches[key] += count
     for key, count in phase_bench(card).items():
+        launches[key] += count
+    for key, count in phase_campaign(card, params).items():
         launches[key] += count
 
     _require("jax" not in sys.modules and "yaml" not in sys.modules,

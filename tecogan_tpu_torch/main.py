@@ -35,7 +35,9 @@ module for one step at ``--lr_size`` (the JAX CLI's lines and numbers),
 ``torch.profiler`` chrome trace of them.
 
 All three run on ``cuda:0`` unless ``--gpu_ids -1`` asks for the CPU;
-without CUDA they raise.
+without CUDA they raise. Train and test mode log the warp kernels' launch
+counts of the process as one JSON line at their end (``kernel launches:
+{...}``), for callers that run the CLI in a subprocess.
 
 Data parallelism (the JAX package's dp mesh, ``--gpu_ids 0,1``) runs one
 process per device over ``torch.distributed``: given several ids and no
@@ -54,6 +56,7 @@ stream's rows over the listed devices.
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 import math
 import os
@@ -69,6 +72,7 @@ from .data import create_dataloader, create_test_dataset
 from .metrics import create_metric_calculator
 from .metrics.model_summary import flop_count, profile_frnet
 from .models import define_model
+from .ops import kernel_launches
 from .ops.color import save_sequence
 from .parallel import dist
 from .utils import config as config_utils
@@ -420,7 +424,11 @@ def main(argv=None):
     path_utils.setup_paths(opt, args.mode)
     if args.mode == "profile":
         return profile(opt, args.lr_size, args.test_speed)
-    return train(opt) if args.mode == "train" else test(opt)
+    out = train(opt) if args.mode == "train" else test(opt)
+    # one JSON line of this run's kernel launches, read by callers that
+    # drive the CLI in a subprocess (tools/run_synth_campaign.py)
+    log_info(f"kernel launches: {json.dumps(kernel_launches())}")
+    return out
 
 
 if __name__ == "__main__":

@@ -30,7 +30,9 @@ from ..parallel import dist
 from ..utils import ckpt as ckpt_io
 from ..utils.logging_utils import format_train_msg
 
-_log = logging.getLogger(__name__)
+# the CLI's logger: the checkpoint and resume lines go to its log, as the
+# JAX package's log_info puts them (tecogan_tpu/models/base.py:146,178)
+_log = logging.getLogger("base")
 
 
 class BaseVSRModel:

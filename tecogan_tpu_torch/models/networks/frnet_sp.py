@@ -126,14 +126,21 @@ def infer_sequence_sp(net, lr_seq: torch.Tensor, cfg: FRNetConfig, devices,
         return infer_sequence(net, lr_seq.to(devices[0]), cfg, chunk)
     t, h, w, c = lr_seq.shape
     geo = sp_geometry(cfg, h, k)
+    nets = replicas(net, cfg, devices)
+    with torch.inference_mode():
+        return _stream_rows(nets, devices, lr_seq, cfg, geo, chunk)
+
+
+def replicas(net, cfg: FRNetConfig, devices) -> dict:
+    """{device: ``net`` in the compute dtype on it}, one copy per distinct
+    device (the net itself where it already lives)."""
     net = _compute_module(net, cfg.dtype)
     nets = {}
     for d in devices:
         if d not in nets:
             on = next(net.parameters()).device == d
             nets[d] = net if on else copy.deepcopy(net).to(d)
-    with torch.inference_mode():
-        return _stream_rows(nets, devices, lr_seq, cfg, geo, chunk)
+    return nets
 
 
 def _stream_rows(nets, devices, lr_seq, cfg, geo, chunk):

@@ -26,6 +26,35 @@ __all__ = [
     "space_to_depth",
     "upsample_bilinear",
     "upsample_tecogan_bicubic",
+    "kernel_launches",
+    "reset_kernel_launches",
     "warp_planes",
     "warp_planes_reference",
 ]
+
+
+def kernel_launches() -> dict:
+    """The warp kernels' launch counts in this process (K1 includes its
+    band-mode launches, K3 those fused with K4)."""
+    from . import warp_cuda, warp_phases, warp_vjp
+
+    return {"K1": warp_cuda.warp_planes.launches,
+            "K1 band": warp_cuda.warp_planes.band_launches,
+            "K1 window": warp_cuda.warp_planes_window.launches,
+            "K2": warp_cuda.warp_rgb.launches,
+            "K3": warp_vjp.warp_dimage.launches,
+            "K3+K4": warp_vjp.warp_dimage.dflow_launches,
+            "K4": warp_vjp.warp_dflow.launches,
+            "K5": warp_phases.warp_phases.launches}
+
+
+def reset_kernel_launches() -> None:
+    """Set every count ``kernel_launches`` reads to 0."""
+    from . import warp_cuda, warp_phases, warp_vjp
+
+    for fn in (warp_cuda.warp_planes, warp_cuda.warp_planes_window,
+               warp_cuda.warp_rgb, warp_vjp.warp_dimage, warp_vjp.warp_dflow,
+               warp_phases.warp_phases):
+        fn.launches = 0
+    warp_cuda.warp_planes.band_launches = 0
+    warp_vjp.warp_dimage.dflow_launches = 0
