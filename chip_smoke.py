@@ -64,9 +64,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (nf=64, nb=10, 4x BD, batch 2 x 10 frames of 136^2 uint8 GT, bf16 mixed
    precision, remat) takes five steps; the K2/K3/K4 launch counts (and the
    K3 launches fused with K4) must be exactly what the step's structure
-   gives; ms/step, a profile of one step, then save and resume into a
-   fresh model;
-11. one training step on the card against the CPU, fp32 and bf16;
+   gives; ms/step, a profile of one step; fp32 ms/step with TF32 off (as
+   the step sets it) and under PyTorch's default (cuDNN TF32 on), in
+   turns; then save and resume into a fresh model;
+11. one training step on the card against the CPU, fp32 and bf16, each
+   under the settings the step sets itself (fp32: TF32 off), with the
+   setting its convolutions saw printed;
 12. TecoGAN training: a VSRGANModel on the shipped TecoGAN train.yml (read
    with the port's YAML reader; a generator made from the seed, VGG19 with
    random weights behind its allow_random_weights gate) takes five
@@ -77,8 +80,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    VGG19 unchanged, finite logs; a step whose vote is forced to fail leaves
    D's weights and Adam state bit-identical; ms/step (also with
    update_policy always, which reads nothing back), peak memory, a profile
-   and a breakdown of one step; save and resume;
-13. one GAN step on the card against the CPU, fp32 and bf16;
+   and a breakdown of one step; fp32 ms/step with TF32 off and on, in
+   turns, as in phase 10; save and resume;
+13. one GAN step on the card against the CPU, fp32 and bf16, as in
+   phase 11;
 14. train mode through the port's CLI (tecogan_tpu_torch.main, in process,
    card 0), from a records store of 4 sequences x 30 frames at REDS's
    frame geometry (720x1280) made from the seed and a 10-frame PNG
@@ -1503,6 +1508,7 @@ def phase_test_mode(card):
 
     from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
                                                    infer_sequence)
+    from tecogan_tpu_torch.nn import no_tf32
     from tecogan_tpu_torch.ops.color import float32_to_uint8
     from tecogan_tpu_torch.ops.degrade import imresize_matlab
     from tecogan_tpu_torch.utils.ckpt import (load_generator_params,
@@ -1585,18 +1591,14 @@ def phase_test_mode(card):
         sd = load_generator_params(f"{tmp}/ckpt/G_iter1.npz", NB, SCALE)
 
     # (g) bf16 against fp32 over a 96-frame clip, full width, on the card
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     net = FRNet.from_state_dict(FRNetConfig(nf=NF, nb=NB, scale=SCALE), sd,
                                 "cuda")
     lr = torch.from_numpy(_smooth_frames(rng, DRIFT_T, *DRIFT_LR)).cuda()
-    a, b = (infer_sequence(net, lr, FRNetConfig(
-        nf=NF, nb=NB, scale=SCALE, compute_dtype=dt), chunk=16)
-        .cpu().numpy().astype(np.float64) for dt in ("float32", "bfloat16"))
-    (torch.backends.cudnn.allow_tf32,
-     torch.backends.cuda.matmul.allow_tf32) = saved
+    with no_tf32():
+        a, b = (infer_sequence(net, lr, FRNetConfig(
+            nf=NF, nb=NB, scale=SCALE, compute_dtype=dt), chunk=16)
+            .cpu().numpy().astype(np.float64)
+            for dt in ("float32", "bfloat16"))
     mse = np.mean((a - b) ** 2, axis=(1, 2, 3))
     psnr = 10 * np.log10(255.0 ** 2 / np.maximum(mse, 1e-12))
     first, last = psnr[:16].mean(), psnr[-16:].mean()
@@ -1859,9 +1861,8 @@ def phase_card_vs_cpu(sd, rng):
 
     from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
                                                    infer_sequence)
+    from tecogan_tpu_torch.nn import no_tf32
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     print("card vs CPU: TF32 off for cuDNN convolutions and matmuls")
     lr = torch.from_numpy(_smooth_frames(rng, 8, 64, 64))
     cpu_net = FRNet.from_state_dict(FRNetConfig(nf=NF, nb=NB, scale=SCALE),
@@ -1876,7 +1877,9 @@ def phase_card_vs_cpu(sd, rng):
                              chunk=4).numpy().astype(np.int32)
         for cfg, max_diff, floor in ((cfg32, F32_MAX_DIFF, F32_PSNR),
                                      (cfg16, BF16_MAX_DIFF, BF16_PSNR)):
-            got = infer_sequence(net, lr.cuda(), cfg, chunk=4).cpu().numpy()
+            with no_tf32():
+                got = infer_sequence(net, lr.cuda(), cfg,
+                                     chunk=4).cpu().numpy()
             d = got.astype(np.int32) - cpu
             mse = float(np.mean(d.astype(np.float64) ** 2))
             psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
@@ -2006,6 +2009,15 @@ def phase_train(rng, card):
         _profile(lambda: model.train(batch), "one training step", card,
                  ("warp_planes_kernel", "warp_dimage_kernel",
                   "warp_dimage_dflow_kernel", "warp_dflow_kernel"))
+        opt32 = _train_opt(ckpt_dir)
+        opt32["train"]["mixed_precision"] = False
+        model32 = VSRModel(opt32)
+        _fp32_tf32_turns(
+            f"FRVSR (nf={NF}, nb={NB}, batch {TRAIN_BATCH}x{TRAIN_T}x"
+            f"{size}^2, remat)", model32,
+            [model32.prepare_training_data({"gt": gt})
+             for gt in batches[:TF32_TURN_STEPS]], card)
+        del model32
 
         model.save(model.state["step"])
         model.save_training_state_now(model.state["step"])
@@ -2029,9 +2041,90 @@ def phase_train(rng, card):
     return {k: launches[k] for k in ("K2", "K3", "K3+K4", "K4")}
 
 
+@contextlib.contextmanager
+def _tf32_seen(nets):
+    """Record, at every forward of the first convolution of each of
+    ``nets``, whether cuDNN may run fp32 convolutions in TF32
+    (``torch.backends.cudnn.allow_tf32``); yields the list it fills."""
+    import torch
+
+    seen = []
+    hooks = [next(m for m in net.modules() if isinstance(m, torch.nn.Conv2d))
+             .register_forward_pre_hook(
+                 lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+             for net in nets]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _check_tf32_seen(label, seen, mixed):
+    """Print the TF32 setting a step's convolutions saw and the one around
+    the step; an fp32 step must have run them all with TF32 off."""
+    import torch
+
+    print(f"{label}: cudnn.allow_tf32 at its convolutions {sorted(set(seen))}"
+          f" ({len(seen)} forwards), around the step "
+          f"{torch.backends.cudnn.allow_tf32}")
+    _require(seen and (mixed or not any(seen)),
+             f"{label}: an fp32 step ran a convolution with TF32 on")
+
+
+# fp32 ms/step with TF32 off (the step's own setting) against PyTorch's
+# defaults (cuDNN TF32 on, CUDA matmuls off: what an fp32 step ran under
+# before it set its own), in turns, TF32_TURN_STEPS timed steps a turn
+TF32_TURNS = (False, True, True, False)
+TF32_TURN_STEPS = 2
+
+
+def _fp32_tf32_turns(label, model, batches, card):
+    """``model`` (an fp32 trainer) timed by CUDA events over
+    ``model.train`` with TF32 off and under PyTorch's default settings, in
+    TF32_TURNS of TF32_TURN_STEPS steps after a warm-up step each; prints
+    each turn's times and the min of each setting."""
+    import unittest.mock
+
+    import torch
+
+    from tecogan_tpu_torch.models import steps
+
+    _require(not model.tcfg.mixed_precision, f"{label}: not an fp32 model")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    _require((cudnn.allow_tf32, matmul.allow_tf32) == (True, False),
+             "PyTorch's TF32 defaults are not in force around the step")
+
+    def run(tf32, n):
+        with contextlib.ExitStack() as stack:
+            if tf32:
+                # the step without its own setting: the defaults around it
+                stack.enter_context(unittest.mock.patch.object(
+                    steps, "training_numerics",
+                    lambda mixed: contextlib.nullcontext()))
+            seen = stack.enter_context(_tf32_seen([model.net_g]))
+            ms = [_events_ms(lambda: model.train(b))[0]
+                  for b in batches[:n]]
+        _require(set(seen) == {tf32}, f"{label}: its convolutions saw TF32 "
+                 f"{sorted(set(seen))}, expected {tf32}")
+        return [round(x, 2) for x in ms]
+
+    run(False, 1)
+    run(True, 1)
+    times = {False: [], True: []}
+    for tf32 in TF32_TURNS:
+        times[tf32].append(run(tf32, TF32_TURN_STEPS))
+    off, on = (min(min(t) for t in times[k]) for k in (False, True))
+    print(f"{label} fp32 ms/step (CUDA events) in turns, TF32 off "
+          f"{times[False]}, on (cuDNN's default) {times[True]}; min off "
+          f"{off:.2f}, on {on:.2f}, off/on {off / on:.3f} on {card}")
+
+
 def _one_step(sd, batch, device, mixed):
-    """One FRVSR step at t=3 from the state dict ``sd`` on ``device``.
-    Returns (logs as floats, {name: gradient as fp32 CPU tensor})."""
+    """One FRVSR step at t=3 from the state dict ``sd`` on ``device``,
+    under the settings the step sets itself. Returns (logs as floats,
+    {name: gradient as fp32 CPU tensor}, the allow_tf32 values its
+    convolutions saw)."""
     import torch
 
     from tecogan_tpu_torch.models import schedules, steps
@@ -2044,24 +2137,28 @@ def _one_step(sd, batch, device, mixed):
                              mixed_precision=mixed)
     opt, sched = schedules.make_adam({"lr": 1e-4}, net.parameters())
     state = steps.frvsr_init_state(net, opt)
-    _, logs = steps.frvsr_train_step(
-        state, {"gt": torch.from_numpy(batch).to(device)}, cfg_g=cfg,
-        tcfg=tcfg, sched_g=sched)
+    with _tf32_seen([net]) as seen:
+        _, logs = steps.frvsr_train_step(
+            state, {"gt": torch.from_numpy(batch).to(device)}, cfg_g=cfg,
+            tcfg=tcfg, sched_g=sched)
     return ({k: float(v) for k, v in logs.items()},
-            {k: p.grad.float().cpu() for k, p in net.named_parameters()})
+            {k: p.grad.float().cpu() for k, p in net.named_parameters()},
+            seen)
 
 
 def phase_train_card_vs_cpu(sd, rng):
     """One training step on the card and on the CPU, same weights and
-    batch (nf=64, nb=10, t=3, LR 16x16)."""
+    batch (nf=64, nb=10, t=3, LR 16x16), each under the settings the step
+    sets itself (an fp32 step turns TF32 off), with nothing set around
+    it."""
     import torch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     batch = _gt_clips(rng, 2, 3, 16 * SCALE + 2 * int(1.5 * 3))
-    cpu_logs, cpu_g = _one_step(sd, batch, "cpu", mixed=False)
+    cpu_logs, cpu_g, _ = _one_step(sd, batch, "cpu", mixed=False)
     for mixed in (False, True):
-        logs, grads = _one_step(sd, batch, "cuda", mixed=mixed)
+        logs, grads, seen = _one_step(sd, batch, "cuda", mixed=mixed)
+        _check_tf32_seen(f"train step card "
+                         f"{'bf16 mixed' if mixed else 'fp32'}", seen, mixed)
         loss_rel = max(abs(logs[k] - cpu_logs[k]) / abs(cpu_logs[k])
                        for k in cpu_logs)
         rel = {k: float((grads[k] - cpu_g[k]).norm() / cpu_g[k].norm())
@@ -2081,7 +2178,7 @@ def phase_train_card_vs_cpu(sd, rng):
             band = (f"losses <= {STEP_F32_RTOL}, per-parameter gradient "
                     f"<= {STEP_F32_GRAD_REL}")
         print(f"train step card {'bf16 mixed' if mixed else 'fp32'} vs CPU "
-              f"fp32 (nf={NF}, nb={NB}, t=3, LR 16x16, TF32 off): losses "
+              f"fp32 (nf={NF}, nb={NB}, t=3, LR 16x16): losses "
               f"{logs} vs {cpu_logs}, max rel diff {loss_rel:.3g}; "
               f"gradient max rel L2 {rel[worst]:.3g} ({worst}), cosine "
               f"{cos:.6f} [{band}]: {'ok' if ok else 'FAIL'}")
@@ -2469,6 +2566,16 @@ def phase_gan_train(rng, card):
                  ("warp_planes_kernel", "warp_dimage_kernel",
                   "warp_dimage_dflow_kernel", "warp_dflow_kernel"))
         _gan_breakdown(model, batch, card)
+        opt32 = _gan_opt(os.path.join(tmp, "ckpt32"), g_path)
+        opt32["train"]["mixed_precision"] = False
+        model32 = VSRGANModel(opt32)
+        _fp32_tf32_turns(
+            f"TecoGAN (shipped train.yml, batch {n}x{te}x{size}^2, {t_all} "
+            f"frames after ping-pong, STNet 128^2, VGG19, remat, adaptive "
+            f"vote)", model32,
+            [model32.prepare_training_data({"gt": gt})
+             for gt in batches[:TF32_TURN_STEPS]], card)
+        del model32
 
         step = model.state["step"]
         model.save(step)
@@ -2502,9 +2609,10 @@ def _one_gan_step(sds, batch, device, mixed, d_inputs=None):
     """One TecoGAN step from the state dicts ``sds`` (G, D, VGG19) on
     ``device``: the shipped losses, te=3, STNet at GAN_CMP_HR^2,
     update_policy always, D's lr 0 (its backward and Adam step run, its
-    weights stay). Returns (logs as floats, {name: gradient as fp32
-    CPU tensor} for G's and D's parameters); ``d_inputs``, a list, receives
-    the D phase's real and fake inputs."""
+    weights stay), under the settings the step sets itself. Returns (logs
+    as floats, {name: gradient as fp32 CPU tensor} for G's and D's
+    parameters, the allow_tf32 values G's and D's convolutions saw);
+    ``d_inputs``, a list, receives the D phase's real and fake inputs."""
     import unittest.mock
 
     import torch
@@ -2530,7 +2638,8 @@ def _one_gan_step(sds, batch, device, mixed, d_inputs=None):
             seen.append(args[0].detach().clone())
         return functional_call(module, params, args)
 
-    with unittest.mock.patch.object(steps, "functional_call", recording):
+    with unittest.mock.patch.object(steps, "functional_call", recording), \
+            _tf32_seen([net, net_d]) as tf32:
         _, logs = steps.tecogan_train_step(
             state, {"gt": torch.from_numpy(batch).to(device)}, cfg_g=cfg,
             cfg_d=cfg_d, tcfg=tcfg, sched_g=sched_g, sched_d=sched_d,
@@ -2538,7 +2647,7 @@ def _one_gan_step(sds, batch, device, mixed, d_inputs=None):
     grads = {f"{tag}.{k}": p.grad.float().cpu()
              for tag, m in (("g", net), ("d", net_d))
              for k, p in m.named_parameters()}
-    return {k: float(v) for k, v in logs.items()}, grads
+    return {k: float(v) for k, v in logs.items()}, grads, tf32
 
 
 def _gan_cmp_config(mixed):
@@ -2576,16 +2685,15 @@ def _d_phase_grads(sd_d, x_real, x_fake, device, dtype):
 def phase_gan_card_vs_cpu(sd, rng):
     """One GAN step on the card and on the CPU, same weights and batch
     (nf=64, nb=10, te=3: 5 frames after ping-pong, LR 16x16, STNet at
-    64^2, the shipped losses, update_policy always, D's lr 0), TF32 off;
-    in fp32 D's gradients and its input gradient, on the step's own D
-    inputs, also against float64."""
+    64^2, the shipped losses, update_policy always, D's lr 0), each step
+    under the settings it sets itself (fp32: TF32 off), with nothing set
+    around it; in fp32 D's gradients and its input gradient, on the
+    step's own D inputs, also against float64 (D alone, TF32 off)."""
     import torch
 
     from tecogan_tpu_torch.models.networks import (VGG19, DTrunk,
                                                    STNetConfig)
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from tecogan_tpu_torch.nn import no_tf32
     sds = {"g": sd,
            "d": DTrunk.random(STNetConfig(spatial_size=GAN_CMP_HR),
                               torch.Generator().manual_seed(SEED + 1))
@@ -2595,12 +2703,13 @@ def phase_gan_card_vs_cpu(sd, rng):
     batch = _gt_clips(rng, 2, GAN_CMP_TE,
                       GAN_CMP_HR + 2 * int(1.5 * 3))
     d_inputs = []
-    cpu_logs, cpu_g = _one_gan_step(sds, batch, "cpu", mixed=False,
-                                    d_inputs=d_inputs)
+    cpu_logs, cpu_g, _ = _one_gan_step(sds, batch, "cpu", mixed=False,
+                                       d_inputs=d_inputs)
 
     ref = _d_phase_grads(sds["d"], *d_inputs, "cpu", torch.float64)
     cpu32 = _d_phase_grads(sds["d"], *d_inputs, "cpu", torch.float32)
-    card = _d_phase_grads(sds["d"], *d_inputs, "cuda", torch.float32)
+    with no_tf32():
+        card = _d_phase_grads(sds["d"], *d_inputs, "cuda", torch.float32)
     err = {k: (float((card[k] - v).norm() / v.norm()),
                float((cpu32[k] - v).norm() / v.norm())) for k, v in ref.items()}
     bad = [k for k, (e_card, e_cpu) in err.items()
@@ -2622,7 +2731,9 @@ def phase_gan_card_vs_cpu(sd, rng):
 
     losses = [k for k in cpu_logs if k.startswith("l_") and cpu_logs[k]]
     for mixed in (False, True):
-        logs, grads = _one_gan_step(sds, batch, "cuda", mixed=mixed)
+        logs, grads, seen = _one_gan_step(sds, batch, "cuda", mixed=mixed)
+        _check_tf32_seen(f"GAN step card "
+                         f"{'bf16 mixed' if mixed else 'fp32'}", seen, mixed)
         rel = {k: abs(logs[k] - cpu_logs[k]) / abs(cpu_logs[k])
                for k in losses}
         logit_err = {k: abs(logs[k] - cpu_logs[k]) for k in (
@@ -2659,7 +2770,7 @@ def phase_gan_card_vs_cpu(sd, rng):
                     f"{g_band:.3g}; D's against float64 above")
         print(f"GAN step card {'bf16 mixed' if mixed else 'fp32'} vs CPU "
               f"fp32 (nf={NF}, nb={NB}, te={GAN_CMP_TE}, LR 16x16, STNet "
-              f"{GAN_CMP_HR}^2, TF32 off): losses {logs} vs {cpu_logs}; "
+              f"{GAN_CMP_HR}^2): losses {logs} vs {cpu_logs}; "
               f"loss rel diffs { {k: round(v, 6) for k, v in rel.items()} }, "
               f"logit means/distance abs diffs "
               f"{ {k: float(f'{v:.3g}') for k, v in logit_err.items()} }; "
@@ -3997,13 +4108,6 @@ def phase_sp(card, params):
     return launches
 
 
-def _no_tf32():
-    import torch
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 def _dp_frvsr(out, mixed):
     """FRVSR steps on the Vimeo train.yml geometry (DP_STEPS in bf16, one
     in fp32) on this process's rows of global batches of DP_WORLD x
@@ -4105,7 +4209,6 @@ def _dp_worker(out_dir, g_path):
     res["cuda_all_reduce"], res["cuda_broadcast"] = t.tolist(), b.tolist()
     logs, counts, ms = _dp_frvsr(f"{out_dir}/frvsr_bf16_{rank}.pt", True)
     res.update(frvsr_bf16=logs, frvsr_bf16_counts=counts, frvsr_bf16_ms=ms)
-    _no_tf32()
     logs, counts, _ = _dp_frvsr(f"{out_dir}/frvsr_f32_{rank}.pt", False)
     res.update(frvsr_f32=logs, frvsr_f32_counts=counts)
     for key, d_lr_zero in (("gan", True), ("gan_lr", False)):
@@ -4245,7 +4348,6 @@ def phase_dp(card, params):
               f"{[[round(x, 2) for x in r['frvsr_bf16_ms'][1:]] for r in ranks]}"
               f"; one process at {DP_WORLD * TRAIN_BATCH} clips "
               f"{[round(x, 2) for x in one_ms[1:]]} on {card}")
-        _no_tf32()
         one_logs, _, _ = _dp_frvsr(f"{tmp}/frvsr_f32_one.pt", False)
         one = torch.load(f"{tmp}/frvsr_f32_one.pt")
         opt = _train_opt(tmp)

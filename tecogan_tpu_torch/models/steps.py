@@ -12,7 +12,10 @@ Mixed precision (``train.mixed_precision``, on by default in the YAML) is
 the JAX package's: every floating parameter is cast to bf16 for the forward
 and the inputs are bf16, while the master weights, the optimizer state and
 the loss accumulation stay fp32. It is not ``torch.autocast``, which would
-keep some ops in fp32 and cast op by op.
+keep some ops in fp32 and cast op by op. An fp32 step
+(``mixed_precision: false``) runs with TF32 off (``nn.training_numerics``,
+entered by the steps themselves, so every caller gets it) and restores the
+caller's settings after.
 
 ``tecogan_train_step`` follows `vsrgan_model.py:98-286` in the JAX
 package's order: the generator runs once; the D inputs are assembled once
@@ -36,12 +39,13 @@ none of this runs.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 from torch.func import functional_call
 
-from ..nn import cast_params
+from ..nn import cast_params, training_numerics
 from ..ops.degrade import bd_border_size, downsample_bd
 from ..ops.warp_vjp import backward_warp_diff
 from ..parallel import dist
@@ -174,6 +178,17 @@ def _ema_update(running, current, decay: float, step: int):
 FRVSR_LOG_KEYS = ("l_pix_G", "l_warp_G")
 
 
+def _under_training_numerics(step):
+    """Run ``step`` (forward, backward and optimizer step) under
+    ``training_numerics`` for its ``tcfg.mixed_precision``."""
+    @functools.wraps(step)
+    def run(state, batch, *, tcfg, **kw):
+        with training_numerics(tcfg.mixed_precision):
+            return step(state, batch, tcfg=tcfg, **kw)
+    return run
+
+
+@_under_training_numerics
 def frvsr_train_step(state, batch, *, cfg_g, tcfg: TrainConfig, sched_g,
                      log_decay: float = 0.99):
     """One FRVSR iteration (`vsr_model.py:61-95`): pixel + warping loss.
@@ -278,6 +293,7 @@ def _d_params(net_d, dt: torch.dtype, mixed: bool, detach: bool = False):
     return params
 
 
+@_under_training_numerics
 def tecogan_train_step(state, batch, *, cfg_g, cfg_d, tcfg: TrainConfig,
                        sched_g, sched_d, vgg=None, log_decay: float = 0.99):
     """One TecoGAN iteration (`vsrgan_model.py:98-286`).

@@ -1,6 +1,6 @@
 """Layer helpers (the port of ``tecogan_tpu/nn.py``'s ``cast_params`` and
-``batch_norm``), the devices a run takes and the numerics inference runs
-under. Its ``leaky_relu`` and ``max_pool_2x2`` are torch's
+``batch_norm``), the devices a run takes and the numerics inference and
+training run under. Its ``leaky_relu`` and ``max_pool_2x2`` are torch's
 ``nn.LeakyReLU(0.2)`` and ``nn.MaxPool2d(2, 2)`` (floor semantics), which
 the networks hold as modules in the reference's layout."""
 
@@ -15,8 +15,9 @@ from torch import nn
 
 from .parallel import dist
 
-__all__ = ["cast_params", "batch_norm", "inference_numerics",
-           "init_torch_default", "select_device", "select_devices"]
+__all__ = ["cast_params", "batch_norm", "no_tf32", "inference_numerics",
+           "training_numerics", "init_torch_default", "select_device",
+           "select_devices"]
 
 
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
@@ -90,27 +91,61 @@ def init_torch_default(module: nn.Module, generator: torch.Generator):
 
 
 @contextlib.contextmanager
-def inference_numerics(compute_dtype: str):
-    """The cuDNN and matmul settings inference runs under, restored after.
+def no_tf32():
+    """TF32 off for cuDNN convolutions and CUDA matmuls, restored after.
 
-    fp32 means fp32 and the same every run: PyTorch runs fp32 cuDNN
-    convolutions and matmuls in TF32 unless told not to, and cuDNN's
-    default fp32 transposed convolutions are not deterministic, so for
-    float32 work TF32 is off and cuDNN picks only deterministic algorithms.
-    bf16 runs under the settings as they are (it is deterministic without
-    them).
+    PyTorch runs fp32 cuDNN convolutions in TF32 unless told not to
+    (``torch.backends.cudnn.allow_tf32`` is on by default): a 10-bit
+    mantissa for the products, where the JAX package on the CPU computes
+    them in fp32.
     """
-    if compute_dtype != "float32":
-        yield
-        return
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32)
-    cudnn.deterministic = True
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
     cudnn.allow_tf32 = matmul.allow_tf32 = False
     try:
         yield
     finally:
-        cudnn.deterministic, cudnn.allow_tf32, matmul.allow_tf32 = saved
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def inference_numerics(compute_dtype: str):
+    """The cuDNN and matmul settings inference runs under, restored after.
+
+    fp32 means fp32 and the same every run: TF32 is off (``no_tf32``), and
+    cuDNN's default fp32 transposed convolutions are not deterministic, so
+    for float32 work cuDNN picks only deterministic algorithms. bf16 runs
+    under the settings as they are (it is deterministic without them).
+    """
+    if compute_dtype != "float32":
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        with no_tf32():
+            yield
+    finally:
+        cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
+def training_numerics(mixed_precision: bool):
+    """The cuDNN and matmul settings a training step runs under, restored
+    after.
+
+    fp32 training (``mixed_precision: false``) means fp32: TF32 is off for
+    the step's convolutions and matmuls, forward and backward. cuDNN keeps
+    its free choice of algorithms: training promises no determinism, as
+    the JAX package promises none. A mixed (bf16) step runs under the
+    settings as they are.
+    """
+    if mixed_precision:
+        yield
+        return
+    with no_tf32():
+        yield
 
 
 def select_devices(opt) -> list:

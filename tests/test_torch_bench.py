@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from tecogan_tpu_torch.tools import bench_step, bench_suite
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 # toy geometry: nf=8/nb=1, 3 frames of 16x24 LR; a 32^2 GT crop (8^2 LR)

@@ -4,8 +4,10 @@
 the corpus bit for bit, the option dicts key for key, BI's LR and the
 bicubic baseline within 1 gray level (float32 matmuls in another order),
 the generated opt driving the port's loader, the harness line parser, one
-end-to-end ``--smoke`` run; and the committed H100 horizon run
-(``docs/campaign_torch/``) consistent with its claims.
+end-to-end ``--smoke`` run; the scorer of ``docs/campaign_torch/
+horizon.py`` (``TpuDefaultPrecision``: the TPU's DEFAULT-precision
+products) and its ``stop_at`` and ``score`` helpers; and the committed
+H100 runs (``docs/campaign_torch/``) consistent with their claims.
 
 Measured shares of values 1 gray level apart (the rest equal) at the sizes
 below: BI's LR records 0 of 11664 values and its ``test_LR`` tree 0 of
@@ -28,6 +30,7 @@ import torch
 from tecogan_tpu_torch.data.records import RecordStore
 from tecogan_tpu_torch.tools import run_synth_campaign as port
 from tecogan_tpu_torch.utils.png import read_image
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 DOCS = osp.join(REPO, "docs", "campaign_torch")
@@ -35,22 +38,6 @@ SMALL = dict(n_train=2, t_train=6, hw_train=(72, 72), n_test=1, t_test=6,
              hw_test=(64, 64))
 # 1 gray level on at most this share of values (BI LR, bicubic baseline)
 NEAR_FRAC = 0.01
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread here and in the CLIs the campaign spawns: the
-    work is tiny, and under a parallel test run a full thread pool in
-    every process oversubscribes the cores."""
-    n, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
-    torch.set_num_threads(1)
-    os.environ["OMP_NUM_THREADS"] = "1"
-    yield
-    torch.set_num_threads(n)
-    if env is None:
-        del os.environ["OMP_NUM_THREADS"]
-    else:
-        os.environ["OMP_NUM_THREADS"] = env
 
 
 @pytest.fixture(scope="module")
@@ -400,11 +387,124 @@ def test_monitor_reads_the_port_logs(tmp_path, rng):
 
 # ------------------------------------------------------------ the H100 run
 
-def test_h100_campaign_artifacts_consistent():
-    """The committed horizon run (FRVSR 4000 iterations, TecoGAN +1000,
-    eval) agrees with its claims: the validation curve improves over the
-    schedule and does not collapse late, both models beat bicubic, and
-    the README names the card and its power limit."""
+# ------------------------------------------- the TPU-precision scorer
+
+@pytest.fixture(scope="module")
+def horizon():
+    """``docs/campaign_torch/horizon.py``, loaded by its path."""
+    spec = importlib.util.spec_from_file_location(
+        "campaign_horizon", osp.join(DOCS, "horizon.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16_f64(x):
+    return x.to(torch.bfloat16).double()
+
+
+_PRODUCTS = {
+    "conv2d": (((2, 5, 9, 11), (7, 5, 3, 3), (7,)),
+               lambda x, w, b: torch.nn.functional.conv2d(x, w, b,
+                                                          padding=1)),
+    "conv_transpose2d": (((2, 5, 9, 11), (5, 6, 4, 4), (6,)),
+                         lambda x, w, b: torch.nn.functional.
+                         conv_transpose2d(x, w, b, stride=2, padding=1)),
+    "matmul": (((3, 40, 33), (33, 21)), lambda a, b: a @ b),
+    "einsum": (((40, 33), (3, 33, 21)),
+               lambda a, b: torch.einsum("Oh,...hw->...Ow", a, b)),
+    "linear": (((6, 33), (21, 33), (21,)), torch.nn.functional.linear),
+    "bmm": (((3, 40, 33), (3, 33, 21)), torch.bmm),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_PRODUCTS))
+def test_tpu_default_products_round_both_operands(horizon, rng, op):
+    """Under the mode a product of float32 operands equals the float64
+    product of their bf16 roundings (a bias unrounded) to 1e-6 relative,
+    and differs from the float32 product; after the mode the same call is
+    the float32 product again, bit for bit, and TF32's setting is as it
+    was."""
+    shapes, fn = _PRODUCTS[op]
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in shapes]
+    plain = fn(*args)
+    want = fn(*[_bf16_f64(a) for a in args[:2]],
+              *[a.double() for a in args[2:]])
+    tf32 = torch.backends.cudnn.allow_tf32
+    mode = horizon.TpuDefaultPrecision()
+    with mode:
+        got = fn(*args)
+    assert got.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((got.double() - want).abs().max()) <= 1e-6 * scale
+    assert float((plain - got).abs().max()) > 1e-4 * scale
+    assert sum(mode.rounded.values()) == 1
+    assert torch.equal(fn(*args), plain)
+    assert torch.backends.cudnn.allow_tf32 == tf32
+
+
+@pytest.mark.parametrize("warp", ["warp_planes", "warp_rgb"])
+def test_tpu_default_leaves_the_warp_unchanged(horizon, rng, warp):
+    """The port's warps (their plain versions on the CPU) pass the mode
+    bit for bit, and the mode rounds nothing in them: the Pallas warps
+    computed in float32 on the TPU's vector unit, not its MXU."""
+    from tecogan_tpu_torch.ops import warp_cuda
+
+    fn = getattr(warp_cuda, warp)
+    img = torch.from_numpy(rng.random((2, 3, 24, 20)).astype(np.float32))
+    flow = torch.from_numpy(
+        (rng.standard_normal((2, 24, 20, 2)) * 3).astype(np.float32))
+    if warp == "warp_rgb":
+        # the training forward's NHWC layout
+        img = img.contiguous(memory_format=torch.channels_last)
+    plain = fn(img, flow)
+    mode = horizon.TpuDefaultPrecision()
+    with mode:
+        got = fn(img, flow)
+    assert torch.equal(got, plain)
+    assert not mode.rounded and mode.passed
+
+
+def test_stop_at_and_score_read_the_validation(horizon, tmp_path):
+    """``stop_at`` stops a run once its validation JSON holds the asked
+    checkpoint, with only the save cadence set; ``score``'s fp32 reading
+    of that checkpoint is the validation's own, its TpuDefaultPrecision
+    reading another, and in one FRNet forward the mode rounds the
+    convolutions and resize products and passes the warp."""
+    wd = str(tmp_path / "wd")
+    port.main(["data", "--smoke", "--workdir", wd], device="cpu")
+    rc = horizon.stop_at(1, ["frvsr", "--smoke", "--workdir", wd],
+                         ckpt_freq=1, device="cpu", poll_s=0.1)
+    assert rc == 0
+    exp = osp.join(wd, "FRVSR_Synth_4xSR")
+    with open(osp.join(exp, "test", "metrics",
+                       "SynthHeldout_avg.json")) as f:
+        val = json.load(f)
+    assert "G_iter1" in val and "G_iter6" not in val
+    ckpt = osp.join(exp, "train", "ckpt", "G_iter1.npz")
+    out = str(tmp_path / "score.json")
+    horizon.score(wd, ckpt, out, device="cpu", nf=8, nb=2)
+    with open(out) as f:
+        res = json.load(f)
+    assert res["fp32"] == val["G_iter1"]
+    assert res["tpu_default"] != res["fp32"]
+    assert abs(float(res["tpu_default"]["PSNR"])
+               - float(res["fp32"]["PSNR"])) < 1.0
+    ops = res["ops_in_one_frnet_forward"]
+    assert set(ops["rounded"]) == {"conv2d", "conv_transpose2d", "matmul"}
+    assert "warp_planes.default" in ops["passed"]
+
+
+def test_h100_campaign_artifacts_consistent(horizon):
+    """The committed H100 runs agree with their claims. The horizon run
+    (FRVSR 4000 iterations, TecoGAN +1000, eval): the validation curve
+    improves over the schedule and does not collapse late, both models
+    beat bicubic, and the README names the card and its power limit. The
+    FRVSR legs: every validation value finite, each curve rising,
+    each leg's summary naming the JAX run's reading at its checkpoint,
+    its own reading the leg's validation, its band verdict the numbers';
+    the bicubic baseline under the scorer against the JAX row."""
     with open(osp.join(DOCS, "frvsr_validation.json")) as f:
         d = json.load(f)
     iters = sorted(int(k[len("G_iter"):]) for k in d)
@@ -429,3 +529,33 @@ def test_h100_campaign_artifacts_consistent():
     with open(osp.join(DOCS, "README.md")) as f:
         readme = f.read()
     assert "NVIDIA H100" in readme and " W" in readme
+    with open(osp.join(DOCS, "legs_summary.json")) as f:
+        legs = json.load(f)
+    assert set(legs) == set(horizon.LEGS)
+    for leg, row in legs.items():
+        jax_json, val_every = horizon.LEGS[leg]
+        with open(osp.join(DOCS, f"{leg}_validation.json")) as f:
+            val = {k: {m: float(v) for m, v in pt.items()}
+                   for k, pt in json.load(f).items()}
+        iters = sorted(int(k[len("G_iter"):]) for k in val)
+        n = int(row["checkpoint"][len("G_iter"):])
+        assert iters == list(range(val_every, n + 1, val_every)), leg
+        assert all(np.isfinite(v) for pt in val.values()
+                   for v in pt.values()), leg
+        psnr = [val[f"G_iter{i}"]["PSNR"] for i in iters]
+        assert all(b > a for a, b in zip(psnr, psnr[1:])), (leg, psnr)
+        assert row["own_fp32"] == val[row["checkpoint"]], leg
+        with open(osp.join(REPO, "docs", "campaign", jax_json)) as f:
+            jax = {m: float(v)
+                   for m, v in json.load(f)[row["checkpoint"]].items()}
+        assert row["jax"] == jax, leg
+        emu = row["tpu_default"]
+        assert row["tpu_default_within_band_of_jax"] == (
+            abs(emu["PSNR"] - jax["PSNR"]) <= 0.5
+            and abs(emu["SSIM"] - jax["SSIM"]) <= 1e-3
+            and abs(emu["tOF"] - jax["tOF"]) <= 0.1 * jax["tOF"]), leg
+    with open(osp.join(DOCS, "bicubic_tpu_default.json")) as f:
+        bic = json.load(f)
+    for m in ("PSNR", "SSIM", "tOF"):
+        assert (bic["port_cpu_tpu_default"][m]["frame_avg"]
+                == bic["jax_tpu"][m]["frame_avg"]), m

@@ -72,6 +72,7 @@ from tecogan_tpu_torch.utils.png import write_png
 
 from test_torch_train_loop import _opt as _train_opt
 from test_torch_train_loop import data  # noqa: F401  (the fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 _LR = 1e-5

@@ -36,6 +36,7 @@ from tecogan_tpu_torch.models.networks import discriminators as tdisc
 from tecogan_tpu_torch.ops import warp_vjp
 
 from torch_oracles import TorchDTrunk, rand_vgg19_sd
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _NF, _NB, _S = 16, 2, 4
 _HR = 32  # the D's spatial size: the HR training crop

@@ -26,6 +26,7 @@ from tecogan_tpu_torch.models.networks import VGG19, SNetConfig, STNetConfig
 from test_torch_gan import (_HR, _LR, _NB, _S, _TE, _VARIANTS, _gen_nets,
                             _jax_d, _port_d, _variant)
 from torch_oracles import rand_vgg19_sd
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _gan_batches(rng, form):

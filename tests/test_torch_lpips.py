@@ -23,6 +23,7 @@ from tecogan_tpu_torch.metrics.metric_calculator import MetricCalculator
 from tecogan_tpu_torch.utils.ckpt import save_pytree
 from torch_oracles import (rand_alexnet_sd, rand_squeezenet_sd,
                            rand_vgg16_sd)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _RAND = {"alex": rand_alexnet_sd, "vgg": rand_vgg16_sd,
          "squeeze": rand_squeezenet_sd}

@@ -24,6 +24,7 @@ from tecogan_tpu_torch.models.convert import (jax_from_state_dict,
 from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
                                                infer_sequence_batch)
 from tecogan_tpu_torch.utils.png import read_image, read_png, write_png
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 N, T, H, W, CHUNK = 1, 5, 16, 24, 4

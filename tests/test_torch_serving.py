@@ -23,6 +23,7 @@ from tecogan_tpu_torch.models.convert import (jax_from_state_dict,
 from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
                                                infer_sequence_batch)
 from tecogan_tpu_torch.tools import export_serving
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, T, H, W, CHUNK = 1, 5, 16, 24, 4
 

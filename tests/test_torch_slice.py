@@ -23,6 +23,7 @@ from tecogan_tpu_torch.models import VSRModel
 from tecogan_tpu_torch.models.convert import state_dict_from_jax
 from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
                                                infer_sequence)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _GOLDEN = osp.join(osp.dirname(osp.abspath(__file__)), "golden")
 _REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))

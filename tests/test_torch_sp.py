@@ -41,6 +41,7 @@ from tecogan_tpu_torch.ops import warp_cuda
 from tecogan_tpu_torch.ops.warp_cuda import (warp_planes_reference,
                                              warp_planes_window,
                                              warp_planes_window_reference)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _nets(nb=2, scale=4, degradation="BD"):

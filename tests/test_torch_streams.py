@@ -26,18 +26,9 @@ from tecogan_tpu_torch.models.convert import state_dict_from_jax
 from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
                                                infer_sequence_batch)
 from tecogan_tpu_torch.parallel import infer_streams
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CHUNK = 5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the nets are tiny, and under a parallel test
-    run torch's thread pool in every worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

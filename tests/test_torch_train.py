@@ -30,6 +30,7 @@ from tecogan_tpu_torch.models.networks import (FRNet, FRNetConfig,
                                                forward_sequence,
                                                infer_sequence)
 from tecogan_tpu_torch.ops import resize, warp_vjp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _NF, _NB, _S = 16, 2, 4
 _CB = {"type": "CB", "weight": 1, "reduction": "mean"}
@@ -328,6 +329,55 @@ def test_train_step_config_errors(rng):
         steps.frvsr_train_step(state, ok, cfg_g=cfg,
                                tcfg=tcfg._replace(pixel_crit=None),
                                sched_g=sched)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("model", ["frvsr", "tecogan"])
+def test_train_step_numerics(rng, model, mixed):
+    """An fp32 step runs its convolutions with TF32 off and restores the
+    caller's setting after it; a mixed step leaves the setting as it was.
+    A forward pre-hook on a generator conv records
+    ``torch.backends.cudnn.allow_tf32`` where the step's convolutions run."""
+    from tecogan_tpu_torch.models.networks import (VGG19, DTrunk,
+                                                   STNetConfig)
+
+    _, cfg, net = _nets()
+    tcfg = _tcfgs(mixed)[1]
+    opt, sched = schedules.make_adam({"lr": 1e-4}, net.parameters())
+    gt = torch.from_numpy(
+        (rng.random((1, 2, 40, 40, 3)) * 255).astype(np.uint8))
+    if model == "frvsr":
+        state = steps.frvsr_init_state(net, opt)
+        run = functools.partial(steps.frvsr_train_step, state, {"gt": gt},
+                                cfg_g=cfg, tcfg=tcfg, sched_g=sched)
+    else:
+        cfg_d = STNetConfig(spatial_size=32)
+        net_d = DTrunk.random(cfg_d, torch.Generator().manual_seed(1))
+        opt_d, sched_d = schedules.make_adam({"lr": 1e-4},
+                                             net_d.parameters())
+        state = steps.tecogan_init_state(net, net_d, opt, opt_d)
+        gan = tcfg._replace(tempo_extent=2, crop_border_ratio=0.75,
+                            pingpong_crit=_CB,
+                            gan_crit={"type": "GAN", "weight": 0.01})
+        run = functools.partial(
+            steps.tecogan_train_step, state, {"gt": gt}, cfg_g=cfg,
+            cfg_d=cfg_d, tcfg=gan, sched_g=sched, sched_d=sched_d,
+            vgg=VGG19.random(torch.Generator().manual_seed(2)))
+    conv = next(m for m in net.modules()
+                if isinstance(m, torch.nn.Conv2d))
+    seen = []
+    hook = conv.register_forward_pre_hook(
+        lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    try:
+        cudnn.allow_tf32 = True
+        run()
+        assert seen and set(seen) == {mixed}, seen
+        assert cudnn.allow_tf32 is True
+    finally:
+        hook.remove()
+        cudnn.allow_tf32 = saved
 
 
 def test_prepare_bd_batch_matches_jax(rng):

@@ -21,6 +21,7 @@ from tecogan_tpu_torch.data.records import RecordWriter
 from tecogan_tpu_torch.models import vsr_model
 from tecogan_tpu_torch.utils.ckpt import load_pytree
 from tecogan_tpu_torch.utils.png import write_png
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 _LOG_LINE = re.compile(
@@ -28,17 +29,6 @@ _LOG_LINE = re.compile(
     r"(?: \| lr_D: (\d\.\d\de[-+]\d\d))?\] (.*)$")
 _CB = {"type": "CB", "weight": 1, "reduction": "mean"}
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these steps are tiny, and under a parallel
-    test run torch's thread pool in every worker oversubscribes the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _frames(rng, t, h, w):
     return (rng.random((t, h, w, 3)) * 255).astype(np.uint8)

@@ -7,7 +7,6 @@ own."""
 import os
 
 import numpy as np
-import pytest
 import torch
 import yaml
 
@@ -19,6 +18,7 @@ from tecogan_tpu_torch.models import base as tbase
 from tecogan_tpu_torch.models.convert import jax_from_state_dict
 from tecogan_tpu_torch.models.networks import FRNet, FRNetConfig
 from tecogan_tpu_torch.utils.ckpt import load_pytree, save_pytree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _CB = {"type": "CB", "weight": 1, "reduction": "mean"}
 _NF, _NB, _ITERS, _LR = 8, 2, 3, 1e-3
@@ -29,17 +29,6 @@ _NF, _NB, _ITERS, _LR = 8, 2, 3, 1e-3
 _G_ATOL = 3e-4
 _LOSS_RTOL = 1e-4
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these steps are tiny, and under a parallel
-    test run torch's thread pool in every worker oversubscribes the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _opt(root):
     return {

@@ -21,6 +21,7 @@ from tecogan_tpu_torch.ops.warp_phases import (HALO_BOUND, KERNEL_SCALES,
                                                _phases_plan, phase_planes,
                                                warp_phases,
                                                warp_phases_reference)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # tests/test_warp_pallas.py's packed-planes cases: (s, h, w, sigma, clip)
 _CASES = [
