@@ -6,6 +6,7 @@ no files between runs, and for summarising the run (see README.md)::
         [--device D] -- ARGS...
     python3 docs/campaign_torch/horizon.py tpu_default_data -- ARGS...
     python3 docs/campaign_torch/horizon.py carry WORKDIR OUT [--state NAME]
+    python3 docs/campaign_torch/horizon.py restore OUT WORKDIR CKPTS
     python3 docs/campaign_torch/horizon.py g_from_state STATE G_NPZ [--nb 10]
     python3 docs/campaign_torch/horizon.py ms TRAIN_LOG VAL_EVERY
     python3 docs/campaign_torch/horizon.py plot WORKDIR OUT_DIR
@@ -15,8 +16,16 @@ no files between runs, and for summarising the run (see README.md)::
         [--degradation BD|BI] [--scale 4|2] [--device cuda|cpu]
     JAX_PLATFORMS=cpu python3 docs/campaign_torch/horizon.py bicubic_tpu WD
     python3 docs/campaign_torch/horizon.py summarize DOCS_DIR
+    python3 docs/campaign_torch/horizon.py score_points WD CKPT_DIR OUT_JSON \
+        [--device cpu|cuda] [--own N ...]
+    python3 docs/campaign_torch/horizon.py heldout_tpu WD FRVSR_G TECOGAN_G \
+        OUT_JSON [--device cpu|cuda]
+    python3 docs/campaign_torch/horizon.py full_summary DOCS_DIR
 
-until   runs CMD; after SECS it sends SIGINT to each
+until   (superseded by stop_at, which stops only at a validated
+        checkpoint: until can stop a run inside a step, and the
+        iterations since its last state are lost) runs CMD; after SECS
+        it sends SIGINT to each
         ``tecogan_tpu_torch.main`` process among CMD and the processes
         below it (the training CLI: it saves its state where it stands
         between steps, or leaves the newest periodic
@@ -25,11 +34,15 @@ until   runs CMD; after SECS it sends SIGINT to each
         shell's background jobs.
 stop_at runs ``tecogan_tpu_torch.tools.run_synth_campaign ARGS`` in this
         process and stops its training CLI (SIGINT) once the run's
-        validation JSON holds ``G_iter{N}``: a 40000-iteration recipe,
-        whose learning rate is constant until 16000, read at N.
-        ``--ckpt_freq K`` sets only the save cadence of the run's
-        train.yml (``logger.ckpt_freq``), so that ``G_iter{N}.npz`` is
-        written; the cadence does not change training.
+        validation JSON holds ``G_iter{N}`` (N 0: no fixed stop), or,
+        with ``--budget SECS``, at the first validated checkpoint after
+        which one more validation interval would not fit in SECS; never
+        at the run's last iteration, where the CLI ends by itself. A
+        stop at a validated checkpoint leaves ``state_iter{N}.pth`` when
+        the save cadence is the validation's. ``--ckpt_freq K`` sets only
+        the save cadence of the run's train.yml (``logger.ckpt_freq``),
+        so that ``G_iter{N}.npz`` is written; the cadence does not change
+        training.
 tpu_default_data  runs ``tecogan_tpu_torch.tools.run_synth_campaign
         ARGS`` in this process with its data stage under
         ``TpuDefaultPrecision``: BI's LR frames (training records and
@@ -37,8 +50,14 @@ tpu_default_data  runs ``tecogan_tpu_torch.tools.run_synth_campaign
         data stage made them on its chip.
 carry   copies a workdir's logs, ymls, metric JSONs and CSVs, and the
         newest ``state_iter{N}.pth`` of each run whose path holds NAME
-        (all runs without --state, none with --state none), into OUT; the
+        (all runs without --state, none with --state none), into OUT;
+        with ``--ckpts NAME`` also every ``G_iter{N}.npz`` of the runs
+        whose path holds NAME but the one the carried state holds; the
         corpus, result PNGs and other checkpoints stay behind.
+restore puts what ``carry`` brought back into OUT where the next call
+        and the scoring read it: each ``G_iter{N}.npz`` into
+        CKPTS/<run>/, the rest into WORKDIR; each state's generator as
+        CKPTS/<run>/G_iter{N}.npz too.
 g_from_state  writes ``G_iter{N}.npz`` (the JAX layout ``VSRModel.save``
         writes) from a state file's generator weights.
 ms      ms per iteration from the log lines' timestamps, over each window
@@ -46,7 +65,7 @@ ms      ms per iteration from the log lines' timestamps, over each window
         max.
 plot    plots each run's train.log and validation JSON with
         ``scripts/monitor_training.py`` into OUT_DIR as
-        ``<run>_monitor.png``.
+        ``<prefix><run>_monitor.png``.
 bicubic_cpu  makes the held-out set from the seed in WD (the data stage,
         on the CPU), computes the bicubic baseline there with the port
         (float32 on the CPU) and with the JAX script
@@ -78,9 +97,27 @@ summarize  reads each leg's ``<leg>_score.json`` in DOCS_DIR (``score``'s
         reading (for BI also with the LR frames under the scorer) and the
         JAX run's at the same checkpoint, from
         ``docs/campaign/<leg>_validation.json``, the difference and
-        whether it is inside 0.5 dB, 1e-3 SSIM and 10% tOF, and the
-        leg's ms/iteration) and ``twin_summary.json`` (the two precision
+        whether it is inside 0.5 dB, 1e-3 SSIM and 10% tOF, the leg's
+        ms/iteration, and whether it is its recipe's comparison of
+        record: BI's is ``frvsr_bi_tpu_lr``, whose LR frames were made as
+        the JAX leg's were) and ``twin_summary.json`` (the two precision
         twins and their bf16 - fp32 differences).
+
+score_points  scores every ``G_iter{N}.npz`` of CKPT_DIR under the scorer
+        on WD's held-out set (``score``'s second reading; ``--own N``
+        also reads those checkpoints in fp32), one point after another
+        into OUT_JSON, keeping the points it already holds.
+heldout_tpu  the eval's FRVSR and TecoGAN rows on WD's held-out set,
+        test mode plain and under the scorer, each scored by the official
+        harness (the JAX rows came from TPU inference with
+        DEFAULT-precision products).
+full_summary  reads the full schedule's artifacts in DOCS_DIR
+        (``full_<half>_{train.log,validation.json,scores.json}``,
+        ``full_eval_summary.json``, ``full_heldout_tpu.json``) and writes
+        ``full_summary.json``: every JAX validation point and held-out
+        row with its own, scorer, JAX reading, scorer - JAX and the band
+        verdict, and from the logs ms/iteration, ``lr_G`` at the
+        milestones and after each resume, D's updates, kernel launches.
 
 ``TpuDefaultPrecision`` is the arithmetic of the JAX package on its TPU
 for the one thing it left at XLA's default: the precision of float32
@@ -101,6 +138,7 @@ data they moved to bf16 on the TPU; the port moves it with plain copies.
 
 import argparse
 import collections
+import contextlib
 import datetime
 import json
 import os
@@ -240,49 +278,84 @@ def _workdir_arg(args):
     raise SystemExit("stop_at: name the run's --workdir")
 
 
-def stop_at(n, args, ckpt_freq=None, device=None, poll_s=5.0):
+# stop_at's budget: the next validation interval counts at this many times
+# the last one's length
+MARGIN = 1.25
+
+
+def stop_at(n, args, ckpt_freq=None, device=None, poll_s=5.0,
+            budget=None):
     """Run the campaign's ARGS in this process; SIGINT its training CLI
-    once a validation JSON under the workdir holds ``G_iter{n}``."""
+    once a validation JSON under the workdir holds ``G_iter{n}`` (``n``
+    0: no fixed stop), or, with ``budget`` seconds, at the first validated
+    checkpoint after which one more validation interval, at ``MARGIN``
+    times the last one's length, would end past the budget. Never at or past
+    the run's ``total_iter``: there the CLI ends by itself (its kernel
+    launch line and exit code intact)."""
     sys.path.insert(0, REPO)
     from tecogan_tpu_torch.tools import run_synth_campaign as port
 
-    wd, key, stopped = _workdir_arg(args), f"G_iter{n}", threading.Event()
-    if ckpt_freq:
-        base_opt = port._base_opt
+    wd, stopped = _workdir_arg(args), threading.Event()
+    # the run the stage trains: another run's validations (FRVSR's, where
+    # TecoGAN trains) are not this one's
+    run = {"frvsr": "FRVSR_", "tecogan": "TecoGAN_"}.get(args[0], "")
+    total = {}
+    base_opt = port._base_opt
 
-        def with_cadence(*a, **kw):
-            opt = base_opt(*a, **kw)
+    def with_cadence(*a, **kw):
+        opt = base_opt(*a, **kw)
+        total["iter"] = opt["train"]["total_iter"]
+        if ckpt_freq:
             opt["logger"]["ckpt_freq"] = ckpt_freq
-            return opt
+        return opt
 
-        port._base_opt = with_cadence
+    port._base_opt = with_cadence
 
-    def reached():
-        for run in os.listdir(wd) if osp.isdir(wd) else ():
-            js = osp.join(wd, run, "test", "metrics", "SynthHeldout_avg.json")
+    def validated():
+        """The iterations a validation JSON under the workdir holds."""
+        out = set()
+        for d in os.listdir(wd) if osp.isdir(wd) else ():
+            if not d.startswith(run):
+                continue
+            js = osp.join(wd, d, "test", "metrics", "SynthHeldout_avg.json")
             try:
                 with open(js) as f:
-                    if key in json.load(f):
-                        return True
+                    out |= {int(k[len("G_iter"):]) for k in json.load(f)
+                            if re.fullmatch(r"G_iter\d+", k)}
             except (OSError, ValueError):
                 continue
-        return False
+        return out
+
+    def interrupt(key):
+        for pid in _descendants(os.getpid()):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().split(b"\0")
+            except OSError:
+                continue
+            if b"tecogan_tpu_torch.main" in cmd:
+                print(f"{key} validated: SIGINT -> {pid}", flush=True)
+                os.kill(pid, signal.SIGINT)
 
     def watch():
+        seen, t_last = validated(), time.monotonic()
+        t0 = t_last
         while not stopped.is_set():
-            if reached():
-                for pid in _descendants(os.getpid()):
-                    try:
-                        with open(f"/proc/{pid}/cmdline", "rb") as f:
-                            cmd = f.read().split(b"\0")
-                    except OSError:
-                        continue
-                    if b"tecogan_tpu_torch.main" in cmd:
-                        print(f"{key} validated: SIGINT -> {pid}",
+            new = validated() - seen
+            if new:
+                k, now = max(new), time.monotonic()
+                seen |= new
+                interval, t_last = now - t_last, now
+                over = budget and now - t0 + MARGIN * interval > budget
+                if k < total.get("iter", float("inf")) and (
+                        n in new or over):
+                    if over and n not in new:
+                        print(f"budget: {now - t0:.0f} s used, the next "
+                              f"interval needs about {interval:.0f} s",
                               flush=True)
-                        os.kill(pid, signal.SIGINT)
-                stopped.set()
-                return
+                    interrupt(f"G_iter{k}")
+                    stopped.set()
+                    return
             time.sleep(poll_s)
 
     watcher = threading.Thread(target=watch, daemon=True)
@@ -294,11 +367,17 @@ def stop_at(n, args, ckpt_freq=None, device=None, poll_s=5.0):
             raise
     finally:
         stopped.set()
-    print(f"stopped after {key}" if reached() else f"{key} not reached")
-    return 0 if reached() else 1
+        port._base_opt = base_opt
+    last = max(validated(), default=0)
+    print(f"stopped after G_iter{last}" if n and last >= n
+          else f"last validated G_iter{last}")
+    return 0 if not n or last >= n or last >= total.get("iter", 0) else 1
 
 
-def carry(workdir, out, state=None):
+def carry(workdir, out, state=None, ckpts=None):
+    """``ckpts`` NAME also copies the ``G_iter{N}.npz`` of each run whose
+    path holds NAME, but for the one whose weights the carried state
+    holds (``g_from_state`` remakes it)."""
     for root, _, files in os.walk(workdir):
         rel = osp.relpath(root, workdir)
         if rel.split(os.sep)[0] == "data" or "results" in rel.split(os.sep):
@@ -308,12 +387,43 @@ def carry(workdir, out, state=None):
         states = sorted((f for f in files
                          if re.fullmatch(r"state_iter\d+\.pth", f)),
                         key=lambda f: int(re.findall(r"\d+", f)[0]))
+        held = None
         if states and (state is None or state in rel):
             keep.append(states[-1])
+            held = f"G_iter{re.findall(r'[0-9]+', states[-1])[0]}.npz"
+        if ckpts is not None and ckpts in rel:
+            keep += sorted(f for f in files
+                           if re.fullmatch(r"G_iter\d+\.npz", f)
+                           and f != held)
         for f in keep:
             os.makedirs(osp.join(out, rel), exist_ok=True)
             shutil.copy2(osp.join(root, f), osp.join(out, rel, f))
             print(f"carried {osp.join(rel, f)}")
+
+
+def restore(out, workdir, ckpts, nb=10, scale=4):
+    """Put what ``carry`` brought back from a card call (OUT) where the
+    next call and the scoring read it: every ``G_iter{N}.npz`` into
+    CKPTS/<run>/, the rest into WORKDIR at its relative path; for each
+    state file, its generator as CKPTS/<run>/G_iter{N}.npz (the one carry
+    leaves out)."""
+    for root, _, files in os.walk(out):
+        rel = osp.relpath(root, out)
+        run = rel.split(os.sep)[0]
+        if rel == ".":
+            continue  # the call's own files (card.txt, scores)
+        for f in files:
+            if re.fullmatch(r"G_iter\d+\.npz", f):
+                dst = osp.join(ckpts, run, f)
+            else:
+                dst = osp.join(workdir, rel, f)
+            os.makedirs(osp.dirname(dst), exist_ok=True)
+            shutil.copy2(osp.join(root, f), dst)
+            if re.fullmatch(r"state_iter\d+\.pth", f):
+                g = osp.join(ckpts, run, f"G_iter{_iter_of(f)}.npz")
+                if not osp.exists(g):
+                    g_from_state(osp.join(root, f), g, nb, scale)
+            print(f"restored {dst}")
 
 
 def g_from_state(state, out, nb=10, scale=4):
@@ -346,7 +456,7 @@ def ms(log, val_every):
     return len(out), min(out), statistics.median(out), max(out)
 
 
-def plot(workdir, out_dir):
+def plot(workdir, out_dir, prefix=""):
     for run in sorted(os.listdir(workdir)):
         log = osp.join(workdir, run, "train.log")
         js = osp.join(workdir, run, "test", "metrics", "SynthHeldout_avg.json")
@@ -366,7 +476,7 @@ def plot(workdir, out_dir):
                             "SynthHeldout"], cwd=tmp, check=True)
             name = run.split("_")[0].lower()
             shutil.copy(osp.join(exp, "monitor.png"),
-                        osp.join(out_dir, f"{name}_monitor.png"))
+                        osp.join(out_dir, f"{prefix}{name}_monitor.png"))
 
 
 def bicubic_cpu(wd):
@@ -415,17 +525,16 @@ def dtype_cpu(wd, ckpt):
     print(rows)
 
 
-def _score_once(wd, ckpt, name, degradation, device, mode=None, nf=64,
-                nb=10):
-    """One validation of ``ckpt`` in this process (test mode, the
-    campaign's test block and metrics, no PNGs), under ``mode`` if given:
-    {PSNR, SSIM, tOF} as the validation JSON holds them."""
+def _in_process_cli(mode=None, save_res=False):
+    """A stand-in for the campaign's ``_run_cli``: the port's CLI in this
+    process (under ``mode`` if given), result PNGs written only with
+    ``save_res``."""
     from tecogan_tpu_torch import main as cli
     from tecogan_tpu_torch.tools import run_synth_campaign as port
     from tecogan_tpu_torch.utils.yaml_subset import safe_dump
 
-    def in_process(exp_dir, opt, run_mode, device=None):
-        opt["test"]["save_res"] = False
+    def run(exp_dir, opt, run_mode, device=None):
+        opt["test"]["save_res"] = save_res
         os.makedirs(exp_dir, exist_ok=True)
         yml = osp.join(exp_dir, f"{run_mode}.yml")
         with open(yml, "w") as f:
@@ -438,7 +547,17 @@ def _score_once(wd, ckpt, name, degradation, device, mode=None, nf=64,
             with mode:
                 cli.main(argv)
 
-    run_cli, port._run_cli = port._run_cli, in_process
+    return run
+
+
+def _score_once(wd, ckpt, name, degradation, device, mode=None, nf=64,
+                nb=10):
+    """One validation of ``ckpt`` in this process (test mode, the
+    campaign's test block and metrics, no PNGs), under ``mode`` if given:
+    {PSNR, SSIM, tOF} as the validation JSON holds them."""
+    from tecogan_tpu_torch.tools import run_synth_campaign as port
+
+    run_cli, port._run_cli = port._run_cli, _in_process_cli(mode)
     try:
         port._test_model(wd, name, osp.abspath(ckpt), nf=nf, nb=nb,
                          degradation=degradation, device=device)
@@ -546,6 +665,252 @@ def bicubic_tpu(wd):
     print(json.dumps(rows))
 
 
+def _iter_of(name):
+    return int(re.findall(r"\d+", osp.basename(name))[0])
+
+
+def score_points(wd, ckpt_dir, out, device="cpu", own=(), nf=64, nb=10):
+    """Score every ``G_iter{N}.npz`` in ``ckpt_dir`` under
+    ``TpuDefaultPrecision`` on WD's held-out set (made there from the seed
+    if missing), as ``score`` does, and write {checkpoint: {"tpu_default":
+    reading, "seconds": s}} to ``out`` after each point; points already in
+    ``out`` are kept. The checkpoints in ``own`` are also read in fp32
+    (the validation's own reading, here on ``device``)."""
+    sys.path.insert(0, REPO)
+    from tecogan_tpu_torch.tools import run_synth_campaign as port
+
+    if not osp.isdir(osp.join(wd, "data", "test_GT")):
+        port.stage_data(wd, n_train=0, device=device)
+    done = {}
+    if osp.exists(out):
+        with open(out) as f:
+            done = json.load(f)
+    ckpts = sorted((f for f in os.listdir(ckpt_dir)
+                    if re.fullmatch(r"G_iter\d+\.npz", f)), key=_iter_of)
+    for f in ckpts:
+        tag, ckpt = f[:-len(".npz")], osp.join(ckpt_dir, f)
+        row = done.get(tag, {})
+        if "tpu_default" not in row:
+            t0 = time.perf_counter()
+            row["tpu_default"] = _score_once(
+                wd, ckpt, f"score_tpu_default_{tag}", "BD", device,
+                TpuDefaultPrecision(), nf=nf, nb=nb)
+            row["seconds"] = round(time.perf_counter() - t0, 1)
+        if _iter_of(f) in own and "fp32" not in row:
+            row["fp32"] = _score_once(wd, ckpt, f"score_fp32_{tag}", "BD",
+                                      device, nf=nf, nb=nb)
+        done[tag] = row
+        with open(out, "w") as fh:
+            json.dump(dict(sorted(done.items(), key=lambda kv: _iter_of(
+                kv[0]))), fh, indent=2)
+        print(tag, json.dumps(row), flush=True)
+
+
+def _harness(wd, tag, res_root, device):
+    """``run_synth_campaign._official_metrics`` run in this process: the
+    official harness on ``res_root`` against WD's held-out GT, its console
+    summary parsed."""
+    import io
+
+    from tecogan_tpu_torch.official_metrics import metrics
+    from tecogan_tpu_torch.tools import run_synth_campaign as port
+
+    out = osp.join(wd, "eval", f"official_{tag}")
+    os.makedirs(out, exist_ok=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        metrics.main(["--output", out, "--results", res_root, "--targets",
+                      osp.join(wd, "data", "test_GT"), "--gpu_ids",
+                      port._gpu_ids(device)])
+    summary = {}
+    for line in buf.getvalue().splitlines():
+        m = port.METRIC_LINE_RE.match(line.strip())
+        if m:
+            summary[m.group(1)] = {"frames": int(m.group(2)),
+                                   "frame_avg": float(m.group(3)),
+                                   "folder_avg": float(m.group(4))}
+    return summary
+
+
+def heldout_tpu(wd, frvsr_ckpt, tecogan_ckpt, out, device="cpu", nf=64,
+                nb=10):
+    """The eval's FRVSR and TecoGAN rows on WD's held-out set (made there
+    from the seed if missing), read twice: test mode as it runs (fp32,
+    TF32 off) and test mode under ``TpuDefaultPrecision`` (the JAX rows
+    came from TPU inference with DEFAULT-precision products, the BD
+    degradation's included), each scored by the official harness (in this
+    process; ``bicubic_tpu`` reads the baseline). Writes {row: harness
+    summary} to ``out``."""
+    sys.path.insert(0, REPO)
+    from tecogan_tpu_torch.tools import run_synth_campaign as port
+
+    if not osp.isdir(osp.join(wd, "data", "test_GT")):
+        port.stage_data(wd, n_train=0, device=device)
+    rows = {}
+    for tag, mode in (("plain", None), ("tpu_default", TpuDefaultPrecision)):
+        for name, ckpt in (("FRVSR_Synth_4xSR", frvsr_ckpt),
+                           ("TecoGAN_Synth_4xSR", tecogan_ckpt)):
+            run = f"{name}_{tag}"
+            run_cli = port._run_cli
+            port._run_cli = _in_process_cli(mode() if mode else None,
+                                            save_res=True)
+            try:
+                res = port._test_model(wd, run, osp.abspath(ckpt), nf=nf,
+                                       nb=nb, device=device)
+            finally:
+                port._run_cli = run_cli
+            rows[run] = _harness(wd, run, res, device)
+            print(run, json.dumps(rows[run]), flush=True)
+    with open(out, "w") as f:
+        json.dump(rows, f, indent=2)
+
+
+LR_LINE = re.compile(r"(\S+ \S+) \[INFO\]: \[epoch: \d+ \| iter: (\d+) \| "
+                     r"lr_G: ([\d.e+-]+)(?: \| lr_D: ([\d.e+-]+))?\] (.*)")
+
+
+def read_log(log):
+    """A train.log's iteration lines [{iter, lr_G, lr_D, losses...}] in
+    order of appearance (a resumed span's lines after the resume), each
+    resume as [the state's iteration, the first line's after it], and the
+    kernel launch lines' counts."""
+    lines, resumes, launches, pending = [], [], [], None
+    with open(log) as f:
+        for ln in f:
+            if "Resumed training state from" in ln:
+                pending = _iter_of(ln.rsplit("state_iter", 1)[1])
+            elif "kernel launches: " in ln:
+                launches.append(json.loads(ln.split("kernel launches: ")[1]))
+            m = LR_LINE.match(ln)
+            if not m:
+                continue
+            row = {"iter": int(m.group(2)), "lr_G": float(m.group(3))}
+            if m.group(4):
+                row["lr_D"] = float(m.group(4))
+            for kv in m.group(5).split(", "):
+                k, v = kv.split(": ")
+                row[k] = float(v)
+            lines.append(row)
+            if pending is not None:
+                resumes.append([pending, row["iter"]])
+                pending = None
+    return lines, resumes, launches
+
+
+# the full schedule's halves: (validation cadence, total iterations, the
+# JAX run's validation JSON in docs/campaign/)
+FULL = {"frvsr": (5000, 40000, "frvsr_validation.json"),
+        "tecogan": (2500, 15000, "tecogan_validation.json")}
+
+
+def _lr_expected(half, it):
+    if half == "tecogan":
+        return 5e-5
+    return 1e-4 * 0.5 ** sum(it >= m for m in (16000, 32000))
+
+
+def full_summary(docs):
+    """Reads the full run's artifacts in DOCS_DIR (``full_<half>_train.log``,
+    ``full_<half>_validation.json``, ``full_<half>_scores.json`` from
+    ``score_points``, ``full_eval_summary.json`` (the card's eval) and
+    ``full_heldout_tpu.json`` from ``heldout_tpu``) and writes
+    ``full_summary.json``: for every JAX validation point the run reached
+    its own fp32 reading (the run's validation), the scorer's, the JAX
+    run's, scorer - JAX and the band verdict (the JAX reading alone where
+    the run stopped short); the held-out rows the same way against
+    ``docs/campaign/summary.json`` (a verdict only at the JAX row's own
+    checkpoint); and from the logs the ms/iteration, the learning rates
+    at the milestones and after each resume, D's updates and the kernel
+    launches."""
+    out = {"band": BAND}
+    for half, (every, _, jax_json) in FULL.items():
+        with open(osp.join(docs, f"full_{half}_validation.json")) as f:
+            own = {k: _floats(v) for k, v in json.load(f).items()}
+        with open(osp.join(docs, f"full_{half}_scores.json")) as f:
+            scores = json.load(f)
+        with open(osp.join(REPO, "docs", "campaign", jax_json)) as f:
+            jax = {k: _floats(v) for k, v in json.load(f).items()}
+        points = {}
+        for key in sorted(jax, key=_iter_of):
+            row = {"jax": jax[key], "reached": key in own}
+            if key in own:
+                emu = _floats(scores[key]["tpu_default"])
+                row.update({
+                    "own_fp32": own[key], "tpu_default": emu,
+                    "tpu_default_minus_jax": {
+                        m: round(emu[m] - jax[key][m], 6) for m in METRICS},
+                    "tpu_default_within_band_of_jax": _within(emu,
+                                                              jax[key])})
+                if "fp32" in scores[key]:
+                    row["own_fp32_on_the_scoring_device"] = _floats(
+                        scores[key]["fp32"])
+            points[key] = row
+        log = osp.join(docs, f"full_{half}_train.log")
+        lines, resumes, launches = read_log(log)
+        by_iter = {}
+        for row in lines:
+            by_iter.setdefault(row["iter"], row)
+        marks = {r[1] for r in resumes} | {
+            m + d for m in ((16000, 32000) if half == "frvsr" else ())
+            for d in (-100, 0, 100)}
+        n, lo, med, hi = ms(log, every)
+        out[half] = {
+            "points": points,
+            "last_validated": max(own, key=_iter_of),
+            "iterations_logged": [min(by_iter), max(by_iter)],
+            "resumes": resumes,
+            "lr_G": {str(i): {"lr_G": by_iter[i]["lr_G"],
+                              "expected": _lr_expected(half, i)}
+                     for i in sorted(marks) if i in by_iter},
+            "lr_G_as_expected_on_every_line": all(
+                abs(r["lr_G"] - _lr_expected(half, r["iter"])) <= 1e-12
+                for r in lines),
+            "ms_per_iteration": {"windows": n, "min": round(lo, 2),
+                                 "median": round(med, 2),
+                                 "max": round(hi, 2)},
+            "kernel_launches_last_run": launches[-1] if launches else None}
+        if half == "tecogan":
+            for k in ("n_upd_D", "l_gan_D", "distance"):
+                out[half][k] = {str(r["iter"]): r[k] for r in lines
+                                if r["iter"] % 500 == 0 and k in r}
+    with open(osp.join(REPO, "docs", "campaign", "summary.json")) as f:
+        jax_rows = json.load(f)
+    with open(osp.join(docs, "full_eval_summary.json")) as f:
+        card_rows = json.load(f)
+    with open(osp.join(docs, "full_heldout_tpu.json")) as f:
+        tpu_rows = json.load(f)
+    with open(osp.join(docs, "bicubic_tpu_default.json")) as f:
+        bic = json.load(f)
+    tpu_rows.update({"bicubic_plain": bic["port_cpu"],
+                     "bicubic_tpu_default": bic["port_cpu_tpu_default"]})
+    held = {}
+    points = {"bicubic": (None, None),
+              "FRVSR_Synth_4xSR": (out["frvsr"]["last_validated"],
+                                   "G_iter40000"),
+              "TecoGAN_Synth_4xSR": (out["tecogan"]["last_validated"],
+                                     "G_iter15000")}
+    for name, (ckpt, jax_ckpt) in points.items():
+        jrow = {m: jax_rows[name][m]["frame_avg"] for m in METRICS}
+        row = {"checkpoint": ckpt, "jax_checkpoint": jax_ckpt, "jax": jrow,
+               "own_card": {m: card_rows[name][m]["frame_avg"]
+                            for m in METRICS}}
+        for tag in ("plain", "tpu_default"):
+            got = {m: tpu_rows[f"{name}_{tag}"][m]["frame_avg"]
+                   for m in METRICS}
+            row[f"{tag}_cpu"] = got
+            row[f"{tag}_cpu_minus_jax"] = {m: round(got[m] - jrow[m], 6)
+                                           for m in METRICS}
+        # a verdict only where the row is the JAX row's own checkpoint
+        row["tpu_default_within_band_of_jax"] = (
+            _within(row["tpu_default_cpu"], jrow) if ckpt == jax_ckpt
+            else None)
+        held[name] = row
+    out["heldout"] = held
+    with open(osp.join(docs, "full_summary.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    print(json.dumps(out, indent=2))
+
+
 # leg: (the JAX run's validation JSON in docs/campaign/, the validation
 # cadence of the leg's recipe)
 LEGS = {"twin_bf16": ("twin_bf16_validation.json", 500),
@@ -554,6 +919,9 @@ LEGS = {"twin_bf16": ("twin_bf16_validation.json", 500),
         "frvsr_2x": ("frvsr_2x_validation.json", 5000),
         # BI trained and scored on LR frames made under the scorer
         "frvsr_bi_tpu_lr": ("frvsr_bi_validation.json", 5000)}
+# a leg whose comparison with the JAX leg another leg took over: BI's is
+# (c'), trained and scored on LR frames made as the JAX leg's were
+SUPERSEDED = {"frvsr_bi": "frvsr_bi_tpu_lr"}
 METRICS = ("PSNR", "SSIM", "tOF")
 # the band a leg's scorer reading is held to around the JAX reading
 BAND = {"PSNR": 0.5, "SSIM": 1e-3, "tOF": 0.10}
@@ -604,7 +972,10 @@ def summarize(docs):
                if "tpu_default_lr_too" in sc else {}),
             "ms_per_iteration": {"windows": n, "min": round(lo, 2),
                                  "median": round(med, 2),
-                                 "max": round(hi, 2)}}
+                                 "max": round(hi, 2)},
+            "of_record": leg not in SUPERSEDED,
+            **({"superseded_by": SUPERSEDED[leg]} if leg in SUPERSEDED
+               else {})}
     with open(osp.join(docs, "legs_summary.json"), "w") as f:
         json.dump(legs, f, indent=2)
     if {"twin_bf16", "twin_fp32"} <= set(legs):
@@ -632,11 +1003,17 @@ def main():
     p.add_argument("n", type=int)
     p.add_argument("--ckpt_freq", type=int, default=None)
     p.add_argument("--device", default=None)
+    p.add_argument("--budget", type=float, default=None)
     sub.add_parser("tpu_default_data")
     p = sub.add_parser("carry")
     p.add_argument("workdir")
     p.add_argument("out")
     p.add_argument("--state", default=None)
+    p.add_argument("--ckpts", default=None)
+    p = sub.add_parser("restore")
+    p.add_argument("out")
+    p.add_argument("workdir")
+    p.add_argument("ckpts")
     p = sub.add_parser("g_from_state")
     p.add_argument("state")
     p.add_argument("out")
@@ -648,6 +1025,7 @@ def main():
     p = sub.add_parser("plot")
     p.add_argument("workdir")
     p.add_argument("out_dir")
+    p.add_argument("--prefix", default="")
     p = sub.add_parser("bicubic_cpu")
     p.add_argument("workdir")
     p = sub.add_parser("dtype_cpu")
@@ -666,6 +1044,20 @@ def main():
     p.add_argument("workdir")
     p = sub.add_parser("summarize")
     p.add_argument("docs")
+    p = sub.add_parser("score_points")
+    p.add_argument("workdir")
+    p.add_argument("ckpt_dir")
+    p.add_argument("out")
+    p.add_argument("--device", default="cpu")
+    p.add_argument("--own", type=int, nargs="*", default=())
+    p = sub.add_parser("heldout_tpu")
+    p.add_argument("workdir")
+    p.add_argument("frvsr_ckpt")
+    p.add_argument("tecogan_ckpt")
+    p.add_argument("out")
+    p.add_argument("--device", default="cpu")
+    p = sub.add_parser("full_summary")
+    p.add_argument("docs")
     argv, rest = sys.argv[1:], []
     if argv[:1] in (["stop_at"], ["tpu_default_data"]) and "--" in argv:
         argv, rest = argv[:argv.index("--")], argv[argv.index("--") + 1:]
@@ -673,18 +1065,21 @@ def main():
     if a.cmd == "until":
         sys.exit(until(a.secs, a.command))
     if a.cmd == "stop_at":
-        sys.exit(stop_at(a.n, rest, a.ckpt_freq, a.device))
+        sys.exit(stop_at(a.n, rest, a.ckpt_freq, a.device,
+                         budget=a.budget))
     if a.cmd == "tpu_default_data":
         sys.exit(tpu_default_data(rest))
     if a.cmd == "carry":
-        carry(a.workdir, a.out, a.state)
+        carry(a.workdir, a.out, a.state, a.ckpts)
+    elif a.cmd == "restore":
+        restore(a.out, a.workdir, a.ckpts)
     elif a.cmd == "g_from_state":
         g_from_state(a.state, a.out, a.nb, a.scale)
     elif a.cmd == "ms":
         print("windows %d, ms/iteration min %.2f, median %.2f, max %.2f"
               % ms(a.log, a.val_every))
     elif a.cmd == "plot":
-        plot(a.workdir, a.out_dir)
+        plot(a.workdir, a.out_dir, a.prefix)
     elif a.cmd == "bicubic_cpu":
         bicubic_cpu(a.workdir)
     elif a.cmd == "dtype_cpu":
@@ -694,6 +1089,12 @@ def main():
               a.nf, a.nb)
     elif a.cmd == "bicubic_tpu":
         bicubic_tpu(a.workdir)
+    elif a.cmd == "score_points":
+        score_points(a.workdir, a.ckpt_dir, a.out, a.device, a.own)
+    elif a.cmd == "heldout_tpu":
+        heldout_tpu(a.workdir, a.frvsr_ckpt, a.tecogan_ckpt, a.out, a.device)
+    elif a.cmd == "full_summary":
+        full_summary(a.docs)
     else:
         summarize(a.docs)
 

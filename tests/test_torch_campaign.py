@@ -19,6 +19,7 @@ import importlib.util
 import json
 import os
 import os.path as osp
+import re
 import subprocess
 import sys
 import textwrap
@@ -496,6 +497,92 @@ def test_stop_at_and_score_read_the_validation(horizon, tmp_path):
     assert "warp_planes.default" in ops["passed"]
 
 
+def test_full_schedule_rehearsal(horizon, jax_script, tmp_path,
+                                 monkeypatch):
+    """``run_full.sh``'s steps on the CPU at toy width: a FRVSR run of the
+    6-iteration smoke recipe (milestones 2 and 4) stopped once G_iter3 is
+    validated, carried (the state and every G but the one the state
+    holds) and restored into a fresh workdir with a remade corpus (every
+    G kept apart, the state's remade bit for bit), resumed there to its
+    end across the
+    milestone at 4 (``lr_G`` on every line the JAX schedule's, the first
+    line after the resume included); then the scorer's point reading and
+    the held-out rows plain and under the scorer through the official
+    harness."""
+    from tecogan_tpu.models.schedules import multistep_lr
+
+    base_opt = port._base_opt
+
+    def every_line(*a, **kw):
+        opt = base_opt(*a, **kw)
+        opt["logger"]["log_freq"] = 1
+        return opt
+
+    monkeypatch.setattr(port, "_base_opt", every_line)
+    run = ["frvsr", "--smoke", "--workdir"]
+    wd, wd2, out = (str(tmp_path / d) for d in ("call1", "call2", "carry"))
+    port.main(["data", "--smoke", "--workdir", wd], device="cpu")
+    assert horizon.stop_at(3, run + [wd], ckpt_freq=1, device="cpu",
+                           poll_s=0.02) == 0
+    horizon.carry(wd, out, state="FRVSR", ckpts="FRVSR")
+    ckpt = osp.join("FRVSR_Synth_4xSR", "train", "ckpt")
+    carried = sorted(os.listdir(osp.join(out, ckpt)))
+    n = int(carried[-1][len("state_iter"):-len(".pth")])
+    assert carried == [f"G_iter{i}.npz" for i in range(1, n)] + [
+        f"state_iter{n}.pth"]
+    port.main(["data", "--smoke", "--workdir", wd2], device="cpu")
+    kept = str(tmp_path / "ckpts")
+    horizon.restore(out, wd2, kept, nb=2)
+    assert sorted(os.listdir(osp.join(wd2, ckpt))) == [f"state_iter{n}.pth"]
+    for i in range(1, n + 1):
+        with np.load(osp.join(kept, "FRVSR_Synth_4xSR", f"G_iter{i}.npz")) \
+                as a, np.load(osp.join(wd, ckpt, f"G_iter{i}.npz")) as b:
+            assert a.files == b.files
+            assert all(np.array_equal(a[k], b[k]) for k in a.files), i
+    assert horizon.stop_at(0, run + [wd2], ckpt_freq=1, device="cpu",
+                           budget=1e6) == 0
+    lines, resumes, launches = horizon.read_log(
+        osp.join(wd2, "FRVSR_Synth_4xSR", "train.log"))
+    schedule = multistep_lr(1e-4, [2, 4], 0.5)
+    assert resumes == [[n, n + 1]] and lines[-1]["iter"] == 6
+    assert {r["iter"] for r in lines} == set(range(1, 7))
+    for r in lines:
+        assert r["lr_G"] == pytest.approx(float(schedule(r["iter"])),
+                                          rel=1e-6), r
+    assert launches and set(launches[-1]) >= {"K2", "K3", "K4"}
+
+    with open(osp.join(wd2, "FRVSR_Synth_4xSR", "test", "metrics",
+                       "SynthHeldout_avg.json")) as f:
+        val = json.load(f)
+    assert sorted(val, key=horizon._iter_of) == [
+        f"G_iter{i}" for i in range(1, 7)]
+    last = str(tmp_path / "last")
+    os.makedirs(last)
+    os.link(osp.join(wd2, ckpt, "G_iter6.npz"), osp.join(last, "G_iter6.npz"))
+    scores = str(tmp_path / "scores.json")
+    horizon.score_points(wd2, last, scores, nf=8, nb=2)
+    with open(scores) as f:
+        row = json.load(f)["G_iter6"]
+    assert set(row) == {"tpu_default", "seconds"}
+    assert row["tpu_default"] != val["G_iter6"]
+
+    held = str(tmp_path / "heldout.json")
+    g6 = osp.join(last, "G_iter6.npz")
+    horizon.heldout_tpu(wd2, g6, g6, held, nf=8, nb=2)
+    with open(held) as f:
+        rows = json.load(f)
+    assert set(rows) == {f"{r}_{t}" for r in ("FRVSR_Synth_4xSR",
+                                              "TecoGAN_Synth_4xSR")
+                         for t in ("plain", "tpu_default")}
+    for tag in ("plain", "tpu_default"):
+        got = rows[f"FRVSR_Synth_4xSR_{tag}"]
+        assert got == rows[f"TecoGAN_Synth_4xSR_{tag}"]
+        assert all(np.isfinite(got[m]["frame_avg"])
+                   for m in ("PSNR", "SSIM", "tOF"))
+    assert rows["FRVSR_Synth_4xSR_plain"] != rows[
+        "FRVSR_Synth_4xSR_tpu_default"]
+
+
 def test_h100_campaign_artifacts_consistent(horizon):
     """The committed H100 runs agree with their claims. The horizon run
     (FRVSR 4000 iterations, TecoGAN +1000, eval): the validation curve
@@ -559,3 +646,109 @@ def test_h100_campaign_artifacts_consistent(horizon):
     for m in ("PSNR", "SSIM", "tOF"):
         assert (bic["port_cpu_tpu_default"][m]["frame_avg"]
                 == bic["jax_tpu"][m]["frame_avg"]), m
+    # BI's comparison of record: (c'), its LR frames made as the JAX leg's
+    assert [leg for leg, row in legs.items() if not row["of_record"]] == [
+        "frvsr_bi"]
+    assert legs["frvsr_bi"]["superseded_by"] == "frvsr_bi_tpu_lr"
+    assert not legs["frvsr_bi"]["tpu_default_within_band_of_jax"]
+    assert legs["frvsr_bi_tpu_lr"]["tpu_default_within_band_of_jax"]
+    _full_schedule_consistent(horizon)
+
+
+def _full_schedule_consistent(horizon):
+    """The full 4x BD schedule (FRVSR to 40000, TecoGAN after it, the
+    eval): every JAX point the run reached scored, finite, its own
+    reading the run's validation, its verdicts the numbers'; FRVSR all
+    eight; FRVSR@40k above FRVSR@5000 and both models above bicubic;
+    ``lr_G`` the JAX schedule's on every logged line, the first after each
+    resume included; each half crossed a resume and logged every 100th
+    iteration; TecoGAN warm-started from the run's G_iter40000; a run that
+    ended by itself logged its kernel launches as its iterations times
+    the step's structure."""
+    from tecogan_tpu.models.schedules import multistep_lr
+
+    with open(osp.join(DOCS, "full_summary.json")) as f:
+        full = json.load(f)
+    band = horizon.BAND
+    assert full["band"] == band
+
+    def verdict(got, jax):
+        return (abs(got["PSNR"] - jax["PSNR"]) <= band["PSNR"]
+                and abs(got["SSIM"] - jax["SSIM"]) <= band["SSIM"]
+                and abs(got["tOF"] - jax["tOF"]) <= band["tOF"] * jax["tOF"])
+
+    schedules = {"frvsr": multistep_lr(1e-4, [16000, 32000], 0.5),
+                 "tecogan": lambda i: 5e-5}
+    per_iter = {"frvsr": {"K2": 21, "K3": 9, "K3+K4": 9, "K4": 1},
+                "tecogan": {"K2": 41, "K3": 19, "K3+K4": 18, "K4": 1}}
+    for half, (every, total, jax_json) in horizon.FULL.items():
+        row = full[half]
+        with open(osp.join(REPO, "docs", "campaign", jax_json)) as f:
+            jax = {k: {m: float(v) for m, v in pt.items()}
+                   for k, pt in json.load(f).items()}
+        with open(osp.join(DOCS, f"full_{half}_validation.json")) as f:
+            val = {k: {m: float(v) for m, v in pt.items()}
+                   for k, pt in json.load(f).items()}
+        last = horizon._iter_of(row["last_validated"])
+        reached = [f"G_iter{i}" for i in range(every, last + 1, every)]
+        assert sorted(val, key=horizon._iter_of) == reached, half
+        assert set(row["points"]) == set(jax), half
+        if half == "frvsr":
+            assert last == total
+        for key, pt in row["points"].items():
+            assert pt["jax"] == jax[key] and pt["reached"] == (key in val)
+            if key not in val:
+                assert set(pt) == {"jax", "reached"}, key
+                continue
+            assert pt["own_fp32"] == val[key]
+            assert all(np.isfinite(v) for r in ("own_fp32", "tpu_default")
+                       for v in pt[r].values()), (half, key)
+            assert pt["tpu_default_within_band_of_jax"] == verdict(
+                pt["tpu_default"], jax[key]), (half, key)
+            assert pt["tpu_default_minus_jax"] == pytest.approx(
+                {m: pt["tpu_default"][m] - jax[key][m]
+                 for m in ("PSNR", "SSIM", "tOF")}, abs=1e-6)
+        lines, resumes, launches = horizon.read_log(
+            osp.join(DOCS, f"full_{half}_train.log"))
+        first = {}
+        for r in lines:
+            first.setdefault(r["iter"], r)
+            assert r["lr_G"] == pytest.approx(float(schedules[half](
+                r["iter"])), rel=1e-3), (half, r["iter"])
+            if half == "tecogan":
+                assert r["lr_D"] == pytest.approx(5e-5, rel=1e-3)
+        assert sorted(first) == list(range(100, max(first) + 1, 100)), half
+        assert max(first) >= last
+        assert resumes and all(b == a + 100 and a % every == 0
+                               for a, b in resumes), (half, resumes)
+        assert row["resumes"] == resumes
+        if max(first) == total:
+            resumed = resumes[-1][0]
+            want = {k: v * (total - resumed)
+                    for k, v in per_iter[half].items()}
+            got = launches[-1]
+            assert {k: got[k] for k in want} == want, (half, got)
+            assert got["K1"] == 144 * (total // every - resumed // every)
+    own = {k: v["own_fp32"] for k, v in full["frvsr"]["points"].items()}
+    assert own["G_iter40000"]["PSNR"] > own["G_iter5000"]["PSNR"]
+    assert own["G_iter40000"]["tOF"] < own["G_iter5000"]["tOF"]
+    with open(osp.join(DOCS, "full_tecogan_train.log")) as f:
+        assert re.search(r"load_path: \S*FRVSR_Synth_4xSR/train/ckpt/"
+                         r"G_iter40000\.npz", f.read())
+    with open(osp.join(DOCS, "full_eval_summary.json")) as f:
+        ev = json.load(f)
+    bic = ev["bicubic"]
+    for name in ("FRVSR_Synth_4xSR", "TecoGAN_Synth_4xSR"):
+        assert ev[name]["PSNR"]["frames"] == 104
+        assert ev[name]["PSNR"]["frame_avg"] > bic["PSNR"]["frame_avg"]
+        assert ev[name]["tOF"]["frame_avg"] < bic["tOF"]["frame_avg"]
+    held = full["heldout"]
+    assert held["FRVSR_Synth_4xSR"]["checkpoint"] == "G_iter40000"
+    assert held["TecoGAN_Synth_4xSR"]["checkpoint"] == full["tecogan"][
+        "last_validated"]
+    for name, row in held.items():
+        assert row["own_card"] == {m: ev[name][m]["frame_avg"]
+                                   for m in ("PSNR", "SSIM", "tOF")}, name
+        assert row["tpu_default_within_band_of_jax"] == (
+            verdict(row["tpu_default_cpu"], row["jax"])
+            if row["checkpoint"] == row["jax_checkpoint"] else None), name
