@@ -80,10 +80,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    VGG19 unchanged, finite logs; a step whose vote is forced to fail leaves
    D's weights and Adam state bit-identical; ms/step (also with
    update_policy always, which reads nothing back), peak memory, a profile
-   and a breakdown of one step; fp32 ms/step with TF32 off and on, in
-   turns, as in phase 10; save and resume;
+   and a breakdown of one step; fp32 ms/step with TF32 off and on, and
+   with D's forwards under cuDNN, in turns, as in phase 10; save and
+   resume;
 13. one GAN step on the card against the CPU, fp32 and bf16, as in
-   phase 11;
+   phase 11, and the fp32 D phase against float64 on the step's D inputs
+   and on d_band.py's; every fp32 D convolution forward from float64, no
+   bf16 one;
 14. train mode through the port's CLI (tecogan_tpu_torch.main, in process,
    card 0), from a records store of 4 sequences x 30 frames at REDS's
    frame geometry (720x1280) made from the seed and a 10-frame PNG
@@ -171,6 +174,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (36,3,32,32) and (72,3,32,32); on a failure, the stages' output; after it
    infer_streams on [0, 0] (4 streams of 16 frames at 134x320, bf16) bit
    for bit infer_sequence_batch, K1 once per block and frame.
+23. (run after phase 13) every fp32 convolution and linear pass of one
+   FRVSR step at phase 10's geometry and of one GAN step on d_band.py's
+   case (G, D and VGG19): forward, input gradient and weight gradient, each
+   recomputed on the CPU in float64 and fp32 from the card's own operands;
+   the card's relative L2 distance from float64 within 4x the CPU fp32's
+   or a floor (tools/conv_audit.py), D's convolution forwards within one
+   fp32 rounding of float64 and every one of them from float64; a control
+   GAN step with D's forwards under cuDNN, whose block-1 forward must fall
+   outside one rounding; then, printed only, D's LeakyReLU inputs on that
+   case's other side of the kink from float64's, with cuDNN's fp32
+   forwards and with the forwards from float64 that fp32 steps run.
 
 Every kernel is timed beside its plain version, its device time (from
 torch.profiler), one PyTorch library call that computes the same function
@@ -2072,59 +2086,81 @@ def _check_tf32_seen(label, seen, mixed):
              f"{label}: an fp32 step ran a convolution with TF32 on")
 
 
-# fp32 ms/step with TF32 off (the step's own setting) against PyTorch's
+# fp32 ms/step with TF32 off (the step's own settings) against PyTorch's
 # defaults (cuDNN TF32 on, CUDA matmuls off: what an fp32 step ran under
-# before it set its own), in turns, TF32_TURN_STEPS timed steps a turn
-TF32_TURNS = (False, True, True, False)
+# before it set its own) and, for TecoGAN, against the step with D's
+# forwards under cuDNN (as before they came from float64), in turns,
+# TF32_TURN_STEPS timed steps a turn
+TF32_TURNS = ("off", "on", "on", "off")
+GAN_TURNS = ("off", "on", "cuDNN D", "cuDNN D", "on", "off")
 TF32_TURN_STEPS = 2
+_TURN_NAMES = {"off": "TF32 off", "on": "on (cuDNN's default)",
+               "cuDNN D": "TF32 off, D's forwards under cuDNN"}
 
 
 def _fp32_tf32_turns(label, model, batches, card):
     """``model`` (an fp32 trainer) timed by CUDA events over
-    ``model.train`` with TF32 off and under PyTorch's default settings, in
-    TF32_TURNS of TF32_TURN_STEPS steps after a warm-up step each; prints
-    each turn's times and the min of each setting."""
+    ``model.train`` with TF32 off and under PyTorch's default settings,
+    and for a GAN trainer with D's forwards under cuDNN
+    (``_cudnn_forwards``), in TF32_TURNS (GAN_TURNS) of TF32_TURN_STEPS
+    steps after a warm-up step each; prints each turn's times and the min
+    of each setting. D's forwards come from float64 in the step's own
+    settings only."""
     import unittest.mock
 
     import torch
 
+    from tecogan_tpu_torch import nn as tnn
     from tecogan_tpu_torch.models import steps
 
     _require(not model.tcfg.mixed_precision, f"{label}: not an fp32 model")
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     _require((cudnn.allow_tf32, matmul.allow_tf32) == (True, False),
              "PyTorch's TF32 defaults are not in force around the step")
+    gan = hasattr(model, "net_d")
 
-    def run(tf32, n):
+    def run(setting, n):
         with contextlib.ExitStack() as stack:
-            if tf32:
+            if setting == "on":
                 # the step without its own setting: the defaults around it
                 stack.enter_context(unittest.mock.patch.object(
                     steps, "training_numerics",
                     lambda mixed: contextlib.nullcontext()))
+            if setting == "cuDNN D":
+                stack.enter_context(_cudnn_forwards())
             seen = stack.enter_context(_tf32_seen([model.net_g]))
+            calls = tnn.conv2d_f64_forward.calls
             ms = [_events_ms(lambda: model.train(b))[0]
                   for b in batches[:n]]
+            calls = tnn.conv2d_f64_forward.calls - calls
+        tf32 = setting == "on"
         _require(set(seen) == {tf32}, f"{label}: its convolutions saw TF32 "
                  f"{sorted(set(seen))}, expected {tf32}")
+        _require((calls > 0) == (gan and setting == "off"), f"{label}, "
+                 f"{setting}: {calls} D forwards from float64")
         return [round(x, 2) for x in ms]
 
-    run(False, 1)
-    run(True, 1)
-    times = {False: [], True: []}
-    for tf32 in TF32_TURNS:
-        times[tf32].append(run(tf32, TF32_TURN_STEPS))
-    off, on = (min(min(t) for t in times[k]) for k in (False, True))
-    print(f"{label} fp32 ms/step (CUDA events) in turns, TF32 off "
-          f"{times[False]}, on (cuDNN's default) {times[True]}; min off "
-          f"{off:.2f}, on {on:.2f}, off/on {off / on:.3f} on {card}")
+    turns = GAN_TURNS if gan else TF32_TURNS
+    times = {setting: [] for setting in turns}
+    for setting in times:
+        run(setting, 1)
+    for setting in turns:
+        times[setting].append(run(setting, TF32_TURN_STEPS))
+    best = {k: min(min(t) for t in v) for k, v in times.items()}
+    ratio = ", ".join(f"off/{k} {best['off'] / best[k]:.3f}"
+                      for k in best if k != "off")
+    print(f"{label} fp32 ms/step (CUDA events) in turns, "
+          + ", ".join(f"{_TURN_NAMES[k]} {v}" for k, v in times.items())
+          + "; min " + ", ".join(f"{k} {v:.2f}" for k, v in best.items())
+          + f"; {ratio} on {card}")
 
 
-def _one_step(sd, batch, device, mixed):
-    """One FRVSR step at t=3 from the state dict ``sd`` on ``device``,
-    under the settings the step sets itself. Returns (logs as floats,
-    {name: gradient as fp32 CPU tensor}, the allow_tf32 values its
-    convolutions saw)."""
+def _one_step(sd, batch, device, mixed, recorder=None):
+    """One FRVSR step on ``batch`` (phase 11's: t=3) from the state dict
+    ``sd`` on ``device``, under the settings the step sets itself; inside
+    ``recorder`` (a ``conv_audit.PassRecorder``) watching G when given.
+    Returns (logs as floats, {name: gradient as fp32 CPU tensor}, the
+    allow_tf32 values its convolutions saw)."""
     import torch
 
     from tecogan_tpu_torch.models import schedules, steps
@@ -2137,7 +2173,9 @@ def _one_step(sd, batch, device, mixed):
                              mixed_precision=mixed)
     opt, sched = schedules.make_adam({"lr": 1e-4}, net.parameters())
     state = steps.frvsr_init_state(net, opt)
-    with _tf32_seen([net]) as seen:
+    if recorder is not None:
+        recorder.watch("g", net)
+    with _tf32_seen([net]) as seen, recorder or contextlib.nullcontext():
         _, logs = steps.frvsr_train_step(
             state, {"gt": torch.from_numpy(batch).to(device)}, cfg_g=cfg,
             tcfg=tcfg, sched_g=sched)
@@ -2605,14 +2643,16 @@ def phase_gan_train(rng, card):
     return {key: launches[key] for key in ("K2", "K3", "K3+K4", "K4")}
 
 
-def _one_gan_step(sds, batch, device, mixed, d_inputs=None):
+def _one_gan_step(sds, batch, device, mixed, d_inputs=None, recorder=None):
     """One TecoGAN step from the state dicts ``sds`` (G, D, VGG19) on
     ``device``: the shipped losses, te=3, STNet at GAN_CMP_HR^2,
     update_policy always, D's lr 0 (its backward and Adam step run, its
     weights stay), under the settings the step sets itself. Returns (logs
     as floats, {name: gradient as fp32 CPU tensor} for G's and D's
     parameters, the allow_tf32 values G's and D's convolutions saw);
-    ``d_inputs``, a list, receives the D phase's real and fake inputs."""
+    ``d_inputs``, a list, receives the D phase's real and fake inputs;
+    ``recorder`` (a ``conv_audit.PassRecorder``) watches G, D and VGG19
+    through the step."""
     import unittest.mock
 
     import torch
@@ -2638,8 +2678,12 @@ def _one_gan_step(sds, batch, device, mixed, d_inputs=None):
             seen.append(args[0].detach().clone())
         return functional_call(module, params, args)
 
+    if recorder is not None:
+        for tag, m in (("g", net), ("d", net_d), ("vgg", vgg)):
+            recorder.watch(tag, m)
     with unittest.mock.patch.object(steps, "functional_call", recording), \
-            _tf32_seen([net, net_d]) as tf32:
+            _tf32_seen([net, net_d]) as tf32, \
+            recorder or contextlib.nullcontext():
         _, logs = steps.tecogan_train_step(
             state, {"gt": torch.from_numpy(batch).to(device)}, cfg_g=cfg,
             cfg_d=cfg_d, tcfg=tcfg, sched_g=sched_g, sched_d=sched_d,
@@ -2663,37 +2707,197 @@ def _d_phase_grads(sd_d, x_real, x_fake, device, dtype):
     """The GAN step's D phase alone (D's loss on the real, then the fake
     input: D's gradients) and the G phase's D input gradient (the GAN loss
     of a forward on the fake input alone, with respect to that input), D
-    in ``dtype``; float64 CPU tensors, the input's under "input"."""
+    in ``dtype``, under the settings an fp32 step sets itself; float64 CPU
+    tensors, the input's under "input"."""
     import torch
 
     from tecogan_tpu_torch.models.losses import define_criterion
     from tecogan_tpu_torch.models.networks import DTrunk, STNetConfig
+    from tecogan_tpu_torch.nn import training_numerics
 
     net = DTrunk.from_state_dict(STNetConfig(spatial_size=GAN_CMP_HR), sd_d,
                                  device).to(dtype)
     crit = define_criterion(_gan_cmp_config(False).gan_crit)
-    real, _ = net(x_real.to(device, dtype))
-    fake, _ = net(x_fake.to(device, dtype))
-    (crit(real, True) + crit(fake, False)).backward()
-    grads = {k: p.grad.double().cpu() for k, p in net.named_parameters()}
-    x = x_fake.to(device, dtype).requires_grad_()
-    grads["input"] = torch.autograd.grad(crit(net(x)[0], True),
-                                         x)[0].double().cpu()
+    with training_numerics(mixed_precision=False):
+        real, _ = net(x_real.to(device, dtype))
+        fake, _ = net(x_fake.to(device, dtype))
+        (crit(real, True) + crit(fake, False)).backward()
+        grads = {k: p.grad.double().cpu() for k, p in net.named_parameters()}
+        x = x_fake.to(device, dtype).requires_grad_()
+        grads["input"] = torch.autograd.grad(crit(net(x)[0], True),
+                                             x)[0].double().cpu()
     return grads
 
 
-def phase_gan_card_vs_cpu(sd, rng):
+def _d_phase_band(label, sd_d, x_real, x_fake):
+    """The card's fp32 D phase (``_d_phase_grads``) against float64 on the
+    CPU, beside the CPU's fp32, on the D inputs ``x_real``, ``x_fake``:
+    every convolution forward of the card's from float64 operands
+    (``_route_count``), and each gradient within STEP_F32_GRAD_REL of
+    float64 or within GAN_D_F32_CPU_FACTOR x the CPU fp32's distance.
+    Returns {name: (card, CPU fp32) distance}."""
+    import torch
+
+    ref = _d_phase_grads(sd_d, x_real, x_fake, "cpu", torch.float64)
+    cpu32 = _d_phase_grads(sd_d, x_real, x_fake, "cpu", torch.float32)
+    with _route_count() as routed:
+        card = _d_phase_grads(sd_d, x_real, x_fake, "cuda", torch.float32)
+    _require(routed[0] == routed[1] > 0,
+             f"the card's fp32 D phase on {label}: {routed[1]} of its "
+             f"{routed[0]} convolution forwards from float64")
+    err = {k: (float((card[k] - v).norm() / v.norm()),
+               float((cpu32[k] - v).norm() / v.norm())) for k, v in ref.items()}
+    bad = [k for k, (e_card, e_cpu) in err.items()
+           if e_card > max(STEP_F32_GRAD_REL, GAN_D_F32_CPU_FACTOR * e_cpu)]
+    worst = max(err, key=lambda k: err[k][0])
+    tag = "discriminator_block.block1.1.bias"
+    print(f"GAN D phase fp32 against float64 ({label} "
+          f"{tuple(x_real.shape)}, CPU float64 reference): card max rel "
+          f"L2 {err[worst][0]:.3g} ({worst}; the CPU fp32's there "
+          f"{err[worst][1]:.3g}), CPU fp32 max "
+          f"{max(e[1] for e in err.values()):.3g}; {tag} card "
+          f"{err[tag][0]:.3g}, CPU {err[tag][1]:.3g}; D's input gradient (G "
+          f"phase) card {err['input'][0]:.3g}, CPU {err['input'][1]:.3g} "
+          f"[each <= {STEP_F32_GRAD_REL} or <= {GAN_D_F32_CPU_FACTOR}x the "
+          f"CPU fp32's]: {'ok' if not bad else 'FAIL ' + str(bad)}")
+    _require(not bad, f"the card's fp32 D gradients on {label} are further "
+             f"from float64 than their band")
+    return err
+
+
+@contextlib.contextmanager
+def _route_count():
+    """Yields [the forwards of ``nn.F64ForwardConv2d`` layers on fp32
+    inputs, the calls of the route from float64 operands
+    (``nn.conv2d_f64_forward.calls``)] inside it, filled on exit: equal in
+    an fp32 step, the second 0 in a bf16 one."""
+    import torch
+    from torch.nn.modules.module import register_module_forward_hook
+
+    from tecogan_tpu_torch import nn as tnn
+
+    got = [0, 0]
+
+    def hook(module, args, out):
+        if isinstance(module, tnn.F64ForwardConv2d) and \
+                args[0].dtype == torch.float32:
+            got[0] += 1
+
+    handle = register_module_forward_hook(hook)
+    start = tnn.conv2d_f64_forward.calls
+    try:
+        yield got
+    finally:
+        handle.remove()
+        got[1] = tnn.conv2d_f64_forward.calls - start
+
+
+def _cudnn_forwards():
+    """D's fp32 forwards as ``nn.Conv2d``'s inside an fp32 step: the
+    route from float64 operands off, as D ran before it existed."""
+    import unittest.mock
+
+    import torch
+
+    from tecogan_tpu_torch import nn as tnn
+
+    return unittest.mock.patch.object(tnn.F64ForwardConv2d, "forward",
+                                      torch.nn.Conv2d.forward)
+
+
+def _kink_inputs(sd_d, x_real, x_fake, device, dtype=None, numerics=None):
+    """The inputs of D's five LeakyReLUs (conv_in's output, each block's
+    BatchNorm output) in D's two training-mode forwards on ``x_real`` and
+    ``x_fake`` (D in ``dtype``, fp32 by default, under ``numerics``), as
+    float64 CPU tensors: [[real, fake]] per LeakyReLU."""
+    import torch
+
+    from tecogan_tpu_torch.models.networks import DTrunk, STNetConfig
+
+    dtype = dtype or torch.float32
+    net = DTrunk.from_state_dict(STNetConfig(spatial_size=GAN_CMP_HR), sd_d,
+                                 device).to(dtype)
+    got, hooks = [], []
+    for m in net.modules():
+        if isinstance(m, torch.nn.LeakyReLU):
+            got.append([])
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, a, box=got[-1]: box.append(
+                    a[0].detach().double().cpu())))
+    with torch.no_grad(), numerics or contextlib.nullcontext():
+        net(x_real.to(device, dtype))
+        net(x_fake.to(device, dtype))
+    for h in hooks:
+        h.remove()
+    return got
+
+
+def _kink_flips(label, got, ref):
+    """Prints, per LeakyReLU of D, the inputs on the other side of its
+    kink from float64's (``ref``), with their distance from the kink in
+    float64; returns how many."""
+    names = ("conv_in", *(f"block{i}" for i in range(1, 5)))
+    out, total = [], 0
+    for name, g, r in zip(names, got, ref):
+        for call, (a, b) in enumerate(zip(g, r)):
+            flip = (a > 0) != (b > 0)
+            n = int(flip.sum())
+            total += n
+            if n:
+                out.append(f"{name} ({('real', 'fake')[call]}): {n} at "
+                           f"|y| {sorted(float(v) for v in b[flip].abs())[:4]}")
+    print(f"{label}: D's LeakyReLU inputs across the kink from float64's: "
+          f"{'; '.join(out) or 'none'}", flush=True)
+    return total
+
+
+def _d_band_case(sd):
+    """The GAN case on whose D inputs the card's fp32 D gradients once
+    left their band (``d_band.py``): G from ``sd`` (the state dict of the
+    weights ``main`` draws first from SEED), D and VGG19 from their seeds,
+    and the batch phase 13 draws when phases 8, 10, 11 and 12 alone draw
+    from ``SEED``'s generator before it. Returns (the state dicts, the
+    batch, [D's real and fake input] of its CPU fp32 step)."""
+    import torch
+
+    from tecogan_tpu_torch.models.networks import VGG19, DTrunk, STNetConfig
+
+    rng = np.random.default_rng(SEED)
+    _jax_layout_params(rng, NF, NB, SCALE)  # main's weights, ``sd``
+    _smooth_frames(rng, 8, 64, 64)  # phase 8
+    for _ in range(TRAIN_STEPS):  # phase 10
+        _gt_clips(rng, TRAIN_BATCH, TRAIN_T, 128 + 2 * int(1.5 * 3))
+    _gt_clips(rng, 2, 3, 16 * SCALE + 2 * int(1.5 * 3))  # phase 11
+    _jax_layout_params(rng, NF, NB, SCALE)  # phase 12
+    opt = _gan_opt("", "")
+    n = opt["dataset"]["train"]["batch_size_per_gpu"]
+    size = opt["dataset"]["train"]["crop_size"] + 2 * int(1.5 * 3)
+    for _ in range(GAN_STEPS):
+        _gt_clips(rng, n, opt["train"]["tempo_extent"], size)
+    sds = {"g": sd,
+           "d": DTrunk.random(STNetConfig(spatial_size=GAN_CMP_HR),
+                              torch.Generator().manual_seed(SEED + 1))
+           .state_dict(),
+           "vgg": VGG19.random(torch.Generator().manual_seed(SEED + 2))
+           .state_dict()}
+    batch = _gt_clips(rng, 2, GAN_CMP_TE, GAN_CMP_HR + 2 * int(1.5 * 3))
+    seen = []
+    _one_gan_step(sds, batch, "cpu", mixed=False, d_inputs=seen)
+    return sds, batch, seen
+
+
+def phase_gan_card_vs_cpu(sd, rng, d_band_inputs):
     """One GAN step on the card and on the CPU, same weights and batch
     (nf=64, nb=10, te=3: 5 frames after ping-pong, LR 16x16, STNet at
     64^2, the shipped losses, update_policy always, D's lr 0), each step
     under the settings it sets itself (fp32: TF32 off), with nothing set
     around it; in fp32 D's gradients and its input gradient, on the
-    step's own D inputs, also against float64 (D alone, TF32 off)."""
+    step's own D inputs and on ``d_band_inputs`` (``_d_band_case``'s),
+    also against float64 (D alone, under an fp32 step's settings)."""
     import torch
 
     from tecogan_tpu_torch.models.networks import (VGG19, DTrunk,
                                                    STNetConfig)
-    from tecogan_tpu_torch.nn import no_tf32
     sds = {"g": sd,
            "d": DTrunk.random(STNetConfig(spatial_size=GAN_CMP_HR),
                               torch.Generator().manual_seed(SEED + 1))
@@ -2706,34 +2910,23 @@ def phase_gan_card_vs_cpu(sd, rng):
     cpu_logs, cpu_g, _ = _one_gan_step(sds, batch, "cpu", mixed=False,
                                        d_inputs=d_inputs)
 
-    ref = _d_phase_grads(sds["d"], *d_inputs, "cpu", torch.float64)
-    cpu32 = _d_phase_grads(sds["d"], *d_inputs, "cpu", torch.float32)
-    with no_tf32():
-        card = _d_phase_grads(sds["d"], *d_inputs, "cuda", torch.float32)
-    err = {k: (float((card[k] - v).norm() / v.norm()),
-               float((cpu32[k] - v).norm() / v.norm())) for k, v in ref.items()}
-    bad = [k for k, (e_card, e_cpu) in err.items()
-           if e_card > max(STEP_F32_GRAD_REL, GAN_D_F32_CPU_FACTOR * e_cpu)]
-    worst = max(err, key=lambda k: err[k][0])
-    print(f"GAN D phase fp32 against float64 (the step's D inputs "
-          f"{tuple(d_inputs[0].shape)}, CPU float64 reference): card max rel "
-          f"L2 {err[worst][0]:.3g} ({worst}; the CPU fp32's there "
-          f"{err[worst][1]:.3g}), CPU fp32 max "
-          f"{max(e[1] for e in err.values()):.3g}; D's input gradient (G "
-          f"phase) card {err['input'][0]:.3g}, CPU {err['input'][1]:.3g} "
-          f"[each <= {STEP_F32_GRAD_REL} or <= {GAN_D_F32_CPU_FACTOR}x the "
-          f"CPU fp32's]: {'ok' if not bad else 'FAIL ' + str(bad)}")
-    _require(not bad, "the card's fp32 D gradients are further from float64 "
-             "than their band")
+    err = _d_phase_band("the step's D inputs", sds["d"], *d_inputs)
+    _d_phase_band("d_band.py's D inputs", sds["d"], *d_band_inputs)
     # G's gradient through the GAN loss passes D's input gradient, so G's
     # band widens to what fp32 leaves of that one
     g_band = max(STEP_F32_GRAD_REL, GAN_D_F32_CPU_FACTOR * err["input"][1])
 
     losses = [k for k in cpu_logs if k.startswith("l_") and cpu_logs[k]]
     for mixed in (False, True):
-        logs, grads, seen = _one_gan_step(sds, batch, "cuda", mixed=mixed)
+        with _route_count() as routed:
+            logs, grads, seen = _one_gan_step(sds, batch, "cuda",
+                                              mixed=mixed)
         _check_tf32_seen(f"GAN step card "
                          f"{'bf16 mixed' if mixed else 'fp32'}", seen, mixed)
+        _require(routed[1] == 0 if mixed else routed[0] == routed[1] > 0,
+                 f"GAN step card {'bf16' if mixed else 'fp32'}: {routed[1]} "
+                 f"convolution forwards from float64 (D's fp32 forwards: "
+                 f"{routed[0]})")
         rel = {k: abs(logs[k] - cpu_logs[k]) / abs(cpu_logs[k])
                for k in losses}
         logit_err = {k: abs(logs[k] - cpu_logs[k]) for k in (
@@ -2780,6 +2973,193 @@ def phase_gan_card_vs_cpu(sd, rng):
               f"{'ok' if ok else 'FAIL'}")
         _require(ok, f"card {'bf16' if mixed else 'fp32'} GAN step outside "
                  f"its band")
+
+
+# ------------------------------------------------- fp32 passes against f64
+
+# every fp32 convolution and linear pass (forward, input gradient, weight
+# gradient) of one FRVSR and one GAN step on the card, recomputed on the
+# CPU from the same operands in float64 and in fp32
+# (tools/conv_audit.py): the card within F32_PASS_FACTOR x the CPU fp32's
+# relative L2 distance from float64 on the same call, or within
+# F32_PASS_FLOOR, twice the largest CPU fp32 distance of any audited pass
+# (2.02e-6, D's conv_in weight gradient, on an NVIDIA H100 80GB HBM3's
+# host); F32_PASS_CALLS calls of each (layer, pass) are checked
+F32_PASS_FACTOR = 4.0
+F32_PASS_FLOOR = 4e-6
+F32_PASS_CALLS = 3
+
+
+def _from_float64(layer, kind, pass_):
+    """The passes an fp32 step computes from float64 operands and rounds
+    once (``nn.F64ForwardConv2d``): D's convolution forwards."""
+    return layer.startswith("d.") and kind == "conv2d" and pass_ == "forward"
+
+
+def _audit_step(label, run, rows, prefix=""):
+    """``run(recorder)`` (one fp32 step on the card) inside a
+    ``conv_audit.PassRecorder`` and ``_route_count``; the passes of its
+    layers named ``prefix``... audited (``_from_float64``'s held to one
+    rounding) and added to ``rows``. Returns the route's [D forwards,
+    calls from float64]."""
+    import torch
+
+    from tecogan_tpu_torch.tools import conv_audit
+
+    rec = conv_audit.PassRecorder(F32_PASS_CALLS)
+    with _route_count() as routed:
+        run(rec)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    got = conv_audit.audit([c for c in rec.calls
+                            if c.layer.startswith(prefix)],
+                           F32_PASS_FACTOR, F32_PASS_FLOOR,
+                           rounded_once=_from_float64)
+    print(f"fp32 passes, {label}: {len(got)} (layer, pass) rows from "
+          f"{len(rec.calls)} recorded calls; CPU float64/fp32 recompute "
+          f"{time.perf_counter() - start:.1f} s; D's convolution forwards "
+          f"from float64: {routed[1]} of {routed[0]}")
+    rows += [dict(r, step=label) for r in got]
+    return routed
+
+
+def phase_f32_conv_audit(card, sd, gan_case, out=None):
+    """One fp32 FRVSR step at phase 10's geometry (batch 2 x 10 frames of
+    136^2 GT, remat) and one fp32 GAN step on ``gan_case`` (``_d_band_case``:
+    te=3, STNet at 64^2, VGG19) on the card, inside a
+    ``conv_audit.PassRecorder``; each recorded pass recomputed on the CPU
+    in float64 and fp32, D's forwards also held to one rounding of
+    float64. Prints one line per pass outside its band and the worst pass;
+    ``out``: a path for the JSON of every row. Raises if any pass is
+    outside its band or a D forward of the GAN step did not come from
+    float64. Then the same GAN step with D's forwards under cuDNN (as
+    before the route existed): raises unless block 1's forward, the pass
+    that moved the D gradients of phase 13 on ``gan_case``'s inputs, is
+    outside one rounding there. Returns the rows of the step as it runs."""
+    import torch
+
+    start = time.perf_counter()
+    batch = _gt_clips(np.random.default_rng(SEED + 16), TRAIN_BATCH,
+                      TRAIN_T, 128 + 2 * int(1.5 * 3))
+    rows = []
+    _audit_step("FRVSR", lambda rec: _one_step(sd, batch, "cuda", False,
+                                               recorder=rec), rows)
+    routed = _audit_step("GAN", lambda rec: _one_gan_step(
+        *gan_case[:2], "cuda", False, recorder=rec), rows)
+    for r in rows:
+        if not r["ok"]:
+            print(f"  OUTSIDE: {r['step']} {r['layer']} ({r['kind']}) "
+                  f"{r['pass']}: card {r['device']:.3g}, CPU fp32 "
+                  f"{r['cpu']:.3g}, band {r['band']:.3g}, roundings "
+                  f"{r['rounding']} ({r['calls']} calls)")
+    worst = max(rows, key=lambda r: r["device"] / r["band"])
+    bad = [r for r in rows if not r["ok"]]
+    kinds = sorted({r["kind"] for r in rows})
+    once = {r["layer"]: r["rounding"] for r in rows
+            if r["rounding"] is not None}
+    print(f"fp32 passes against float64: {len(rows)} (layer, pass) rows "
+          f"({', '.join(kinds)}), {len(bad)} outside [card <= max("
+          f"{F32_PASS_FACTOR}x CPU fp32, {F32_PASS_FLOOR}); D's convolution "
+          f"forwards within one rounding of float64]; worst "
+          f"{worst['step']} {worst['layer']} {worst['pass']}: card "
+          f"{worst['device']:.3g}, CPU fp32 {worst['cpu']:.3g}, band "
+          f"{worst['band']:.3g}; D's forwards in roundings "
+          f"{ {k: round(v, 3) for k, v in once.items()} }; "
+          f"{time.perf_counter() - start:.1f} s on {card}")
+    if out:
+        with open(out, "w") as f:
+            json.dump(rows, f, indent=1)
+    _require({"conv2d", "conv_transpose2d", "linear"} <= set(kinds)
+             and all(sum(r["kind"] == k and r["pass"] == p for r in rows)
+                     for k in kinds for p in ("forward", "dgrad", "wgrad")),
+             f"the audit missed a kind of pass: {kinds}")
+    _require(len(once) == 5, f"the audit held {len(once)} of D's 5 "
+             f"convolution forwards to one rounding")
+    _require(routed[0] == routed[1] > 0, f"the card's fp32 GAN step ran "
+             f"{routed[1]} of D's {routed[0]} convolution forwards from "
+             f"float64")
+    _require(not bad, f"{len(bad)} fp32 passes on the card are further from "
+             f"float64 than their band")
+
+    # the check sees the forwards the route replaced: D's under cuDNN
+    control = []
+    with _cudnn_forwards():
+        _audit_step("GAN, D's forwards under cuDNN", lambda rec: _one_gan_step(
+            *gan_case[:2], "cuda", False, recorder=rec), control, "d.")
+    cudnn = {r["layer"]: (round(r["rounding"], 3), float(f"{r['device']:.3g}"))
+             for r in control if r["rounding"] is not None}
+    block1 = "d.discriminator_block.block1.0"
+    print(f"D's convolution forwards under cuDNN, (roundings of float64, "
+          f"relative L2): {cudnn} [the route's: <= 1 rounding]")
+    _require(cudnn.get(block1, (0.0,))[0] > 1.0, "one rounding of float64 "
+             "does not tell block 1's cuDNN forward from the route's")
+
+    # D's forwards feed LeakyReLU's kink: on the case's D inputs, how many
+    # LeakyReLU inputs the card's fp32 step puts on the other side of it
+    # from float64's, with cuDNN's fp32 forwards and from float64 (printed
+    # only; phase 13 holds the gradients to their band)
+    from tecogan_tpu_torch import nn as tnn
+
+    sd_d, (x_real, x_fake) = gan_case[0]["d"], gan_case[2]
+    ref = _kink_inputs(sd_d, x_real, x_fake, "cpu", torch.float64)
+    for label, route in (("under cuDNN", _cudnn_forwards()),
+                         ("from float64", contextlib.nullcontext())):
+        with route:
+            _kink_flips(f"card fp32 step, D's forwards {label}",
+                        _kink_inputs(sd_d, x_real, x_fake, "cuda",
+                                     numerics=tnn.training_numerics(False)),
+                        ref)
+    return rows
+
+
+def _digest(*tensors):
+    """sha256 of the tensors' bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def bf16_digests():
+    """sha256 of G's weights after phase 10's configuration trains 5 bf16
+    steps and of G's and D's after phase 12's does (weights and batches
+    drawn from ``SEED + 20``), printed as one JSON line: equal between two
+    checkouts when their bf16 steps are bit for bit the same. Not a phase:
+    run it in each checkout on the card,
+
+        python3 -c "import chip_smoke as cs; cs.bf16_digests()"
+    """
+    from tecogan_tpu_torch.models import VSRGANModel, VSRModel
+    from tecogan_tpu_torch.utils.ckpt import save_pytree
+
+    def weights(*nets):
+        return _digest(*(v for net in nets
+                         for _, v in sorted(net.state_dict().items())))
+
+    rng = np.random.default_rng(SEED + 20)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model = VSRModel(_train_opt(tmp))
+        for _ in range(TRAIN_STEPS):
+            gt = _gt_clips(rng, TRAIN_BATCH, TRAIN_T, 136)
+            model.train(model.prepare_training_data({"gt": gt}))
+        out["frvsr_g"] = weights(model.net_g)
+        g_path = os.path.join(tmp, "G.npz")
+        save_pytree(_jax_layout_params(rng, NF, NB, SCALE), g_path)
+        opt = _gan_opt(tmp, g_path)
+        model = VSRGANModel(opt)
+        n = opt["dataset"]["train"]["batch_size_per_gpu"]
+        for _ in range(GAN_STEPS):
+            gt = _gt_clips(rng, n, opt["train"]["tempo_extent"], 136)
+            model.train(model.prepare_training_data({"gt": gt}))
+        out["tecogan_g"] = weights(model.net_g)
+        out["tecogan_d"] = weights(model.net_d)
+    print(f"bf16 digests: {json.dumps(out)}", flush=True)
 
 
 # ------------------------------------------------------ train mode (CLI)
@@ -4814,7 +5194,9 @@ def main() -> int:
     phase_train_card_vs_cpu(sd, rng)
     for key, count in phase_gan_train(rng, card).items():
         launches[key] += count
-    phase_gan_card_vs_cpu(sd, rng)
+    gan_case = _d_band_case(sd)
+    phase_gan_card_vs_cpu(sd, rng, gan_case[2])
+    phase_f32_conv_audit(card, sd, gan_case)
     for key, count in phase_train_mode(card).items():
         launches[key] += count
     serve_launches, _ = phase_serving(card, params)

@@ -424,11 +424,14 @@ def main(argv=None):
     path_utils.setup_paths(opt, args.mode)
     if args.mode == "profile":
         return profile(opt, args.lr_size, args.test_speed)
-    out = train(opt) if args.mode == "train" else test(opt)
-    # one JSON line of this run's kernel launches, read by callers that
-    # drive the CLI in a subprocess (tools/run_synth_campaign.py)
-    log_info(f"kernel launches: {json.dumps(kernel_launches())}")
-    return out
+    try:
+        return train(opt) if args.mode == "train" else test(opt)
+    finally:
+        # one JSON line of this run's kernel launches, read by callers that
+        # drive the CLI in a subprocess (tools/run_synth_campaign.py); also
+        # when the run leaves by an exception, a SIGINT's KeyboardInterrupt
+        # included: after train mode's emergency save, before the re-raise
+        log_info(f"kernel launches: {json.dumps(kernel_launches())}")
 
 
 if __name__ == "__main__":

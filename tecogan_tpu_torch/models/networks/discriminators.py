@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from ...nn import batch_norm, init_torch_default
+from ...nn import F64ForwardConv2d, batch_norm, init_torch_default
 from ...ops.warp_vjp import backward_warp_diff
 
 __all__ = ["STNetConfig", "SNetConfig", "BatchNorm2d", "DTrunk",
@@ -78,11 +78,11 @@ class DTrunk(nn.Module):
 
     def __init__(self, cfg: STNetConfig | SNetConfig):
         super().__init__()
-        self.conv_in = nn.Sequential(nn.Conv2d(cfg.in_channels, 64, 3, 1, 1),
-                                     nn.LeakyReLU(0.2))
+        self.conv_in = nn.Sequential(
+            F64ForwardConv2d(cfg.in_channels, 64, 3, 1, 1), nn.LeakyReLU(0.2))
         self.discriminator_block = nn.Sequential(collections.OrderedDict(
             (f"block{i + 1}", nn.Sequential(
-                nn.Conv2d(cin, cout, 4, 2, 1, bias=False),
+                F64ForwardConv2d(cin, cout, 4, 2, 1, bias=False),
                 BatchNorm2d(cout), nn.LeakyReLU(0.2)))
             for i, (cin, cout) in enumerate(_BLOCKS)))
         feat = cfg.spatial_size // 16

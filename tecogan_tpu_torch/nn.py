@@ -16,8 +16,8 @@ from torch import nn
 from .parallel import dist
 
 __all__ = ["cast_params", "batch_norm", "no_tf32", "inference_numerics",
-           "training_numerics", "init_torch_default", "select_device",
-           "select_devices"]
+           "training_numerics", "F64ForwardConv2d", "conv2d_f64_forward",
+           "init_torch_default", "select_device", "select_devices"]
 
 
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
@@ -130,22 +130,103 @@ def inference_numerics(compute_dtype: str):
         cudnn.deterministic = saved
 
 
+# whether ``F64ForwardConv2d`` computes its fp32 forward from float64
+# operands: inside an fp32 training step (``training_numerics(False)``)
+_F64_FORWARD = {"on": False}
+
+
 @contextlib.contextmanager
 def training_numerics(mixed_precision: bool):
     """The cuDNN and matmul settings a training step runs under, restored
     after.
 
     fp32 training (``mixed_precision: false``) means fp32: TF32 is off for
-    the step's convolutions and matmuls, forward and backward. cuDNN keeps
-    its free choice of algorithms: training promises no determinism, as
-    the JAX package promises none. A mixed (bf16) step runs under the
-    settings as they are.
+    the step's convolutions and matmuls, forward and backward, and the
+    discriminator's convolutions (``F64ForwardConv2d``) compute their
+    forward from float64 operands, rounded once to fp32, on every device.
+    cuDNN keeps its free choice of algorithms: training promises no
+    determinism, as the JAX package promises none. A mixed (bf16) step runs
+    under the settings as they are.
     """
     if mixed_precision:
         yield
         return
-    with no_tf32():
-        yield
+    saved = _F64_FORWARD["on"]
+    _F64_FORWARD["on"] = True
+    try:
+        with no_tf32():
+            yield
+    finally:
+        _F64_FORWARD["on"] = saved
+
+
+class _F64Forward(torch.autograd.Function):
+    """A convolution whose forward runs in float64 and is rounded once to
+    its input's dtype; its input and weight gradients are autograd's own
+    for the convolution (``aten.convolution_backward`` on the fp32
+    operands), so only the forward changes."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, dilation, groups, bias is not None)
+        out = F.conv2d(x.double(), weight.double(),
+                       None if bias is None else bias.double(), stride,
+                       padding, dilation, groups)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, groups, has_bias = ctx.conf
+        need = ctx.needs_input_grad
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            g, x, weight, [weight.shape[0]] if has_bias else None, stride,
+            padding, dilation, False, [0, 0], groups,
+            [need[0], need[1], has_bias and need[2]])
+        return gx, gw, gb, None, None, None, None
+
+
+def conv2d_f64_forward(x, weight, bias, stride, padding, dilation, groups):
+    """``F.conv2d`` of fp32 operands with the forward computed in float64
+    and rounded once to fp32 (``_F64Forward``); raises for operands of any
+    other dtype. Counts its calls in ``conv2d_f64_forward.calls``."""
+    if x.dtype != torch.float32 or weight.dtype != torch.float32 or (
+            bias is not None and bias.dtype != torch.float32):
+        raise TypeError(f"conv2d_f64_forward takes fp32 operands, not "
+                        f"{x.dtype} and {weight.dtype}")
+    conv2d_f64_forward.calls += 1
+    return _F64Forward.apply(x, weight, bias, stride, padding, dilation,
+                             groups)
+
+
+conv2d_f64_forward.calls = 0
+
+
+class F64ForwardConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters, names and state dict) whose forward
+    in an fp32 training step (``training_numerics(False)``) with an fp32
+    input is ``conv2d_f64_forward``, on every device: each output the
+    float64 result rounded once.
+
+    The discriminator's convolutions are these. Each feeds a LeakyReLU
+    (through a BatchNorm in the four strided blocks), whose slope changes
+    at zero, and train-mode BatchNorm's bias gradient is a sum that
+    cancels: an output that fp32 rounding moves across the kink moves that
+    gradient by its whole term. cuDNN's fp32 forward (FFMA, no TF32) lies
+    about twice as far from float64 as the CPU's fp32 forward: neither
+    loses bits, yet on some inputs a BatchNorm output lies within either
+    distance of the kink, and the card and the CPU move different inputs
+    across it. A bf16 step and a forward outside a training step run
+    ``nn.Conv2d``'s forward.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _F64_FORWARD["on"] and x.dtype == torch.float32:
+            return conv2d_f64_forward(x, self.weight, self.bias, self.stride,
+                                      self.padding, self.dilation,
+                                      self.groups)
+        return super().forward(x)
 
 
 def select_devices(opt) -> list:

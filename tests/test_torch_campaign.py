@@ -506,7 +506,8 @@ def test_full_schedule_rehearsal(horizon, jax_script, tmp_path,
     G kept apart, the state's remade bit for bit), resumed there to its
     end across the
     milestone at 4 (``lr_G`` on every line the JAX schedule's, the first
-    line after the resume included); then the scorer's point reading and
+    line after the resume included), the stopped CLI's log ending in its
+    launch line; then the scorer's point reading and
     the held-out rows plain and under the scorer through the official
     harness."""
     from tecogan_tpu.models.schedules import multistep_lr
@@ -524,6 +525,14 @@ def test_full_schedule_rehearsal(horizon, jax_script, tmp_path,
     port.main(["data", "--smoke", "--workdir", wd], device="cpu")
     assert horizon.stop_at(3, run + [wd], ckpt_freq=1, device="cpu",
                            poll_s=0.02) == 0
+    # the SIGINT-stopped CLI logs its launches on the way out, after the
+    # emergency save (or its refusal inside a step): no kernel on the CPU
+    log = osp.join(wd, "FRVSR_Synth_4xSR", "train.log")
+    with open(log) as f:
+        text = f.read()
+    assert 0 <= text.rfind("Emergency") < text.rfind("kernel launches: ")
+    _, _, stopped = horizon.read_log(log)
+    assert len(stopped) == 1 and not any(stopped[0].values()), stopped
     horizon.carry(wd, out, state="FRVSR", ckpts="FRVSR")
     ckpt = osp.join("FRVSR_Synth_4xSR", "train", "ckpt")
     carried = sorted(os.listdir(osp.join(out, ckpt)))

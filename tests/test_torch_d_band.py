@@ -11,12 +11,15 @@ where the bits go: PyTorch's CPU BatchNorm backward adds float32 terms in
 float64 only as its threads split a channel, and BatchNorm as plain
 float32 ops keeps the bits, as does the JAX package's fp32 D (its own
 ``nn.batch_norm``, XLA's float32 reductions). A convolution's rounding is
-amplified: TF32-level rounding of conv_in's, block 1's or block 2's
-operands moves that gradient by 3-8e-2. ``python3 d_band.py`` on the card
-names the operation: block 1's convolution (64 to 64 channels, 4x4,
-stride 2) under cuDNN, with TF32 off and with cuDNN's deterministic
-algorithms alike; in float64, or with cuDNN off (PyTorch's native
-convolution), the card reads 1.4-1.6e-6.
+amplified: TF32-level rounding of the operands of conv_in or of one of
+blocks 1-3 moves that gradient by 3-8e-2, of block 4 by 5e-4.
+``python3 d_band.py`` on the card
+names the pass: block 1's forward under cuDNN (64 to 64 channels, 4x4,
+stride 2), with TF32 off and with cuDNN's deterministic algorithms alike;
+with that forward alone in float64, or with cuDNN off (PyTorch's native
+convolution), the card reads 1.4-1.8e-6. Its rounding puts one LeakyReLU
+input of block 1, 2.9e-6 from the kink in float64, on the other side
+(``tests/test_torch_conv_f32.py``).
 """
 
 import importlib.util
@@ -126,7 +129,7 @@ def test_jax_fp32_keeps_the_bits_on_the_failing_inputs(failing):
 
 @pytest.mark.parametrize("layer, lo, hi", [
     ("conv_in", 1e-2, 1.0), ("block1", 1e-2, 1.0), ("block2", 1e-2, 1.0),
-    ("block3", 1e-4, 1e-2), ("block4", 0.0, FP32_REL)])
+    ("block3", 1e-2, 1.0), ("block4", 1e-4, 1e-2)])
 def test_failing_inputs_amplify_convolution_rounding(d_band, failing, layer,
                                                      lo, hi):
     """One convolution's operands rounded to TF32 (forward and backward),
@@ -134,7 +137,8 @@ def test_failing_inputs_amplify_convolution_rounding(d_band, failing, layer,
     relative; the layers nearest the input move it most. The card's 4.91e-3
     sits between fp32 and TF32."""
     sd, xr, xf, ref = failing
-    err = _rel(d_band.d_grads(sd, xr, xf, "cpu",
-                              mode=d_band._tf32_mode(d_band.LAYERS[layer])),
-               ref)
+    name = ("conv_in.0" if layer == "conv_in"
+            else f"discriminator_block.{layer}.0")
+    assert name in d_band.CONVS
+    err = _rel(d_band.d_grads(sd, xr, xf, "cpu", tf32=name), ref)
     assert lo <= err[d_band.TAG] <= hi, err[d_band.TAG]

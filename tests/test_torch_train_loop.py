@@ -2,13 +2,17 @@
 --mode train --gpu_ids -1``) with a tiny FRVSR config: the JAX loop's log
 line and cadence, checkpoints, validation, auto-resume that continues the
 data stream, the emergency save, the device-resident loader, TecoGAN and
-BI."""
+BI; a SIGINT-stopped CLI's last log lines."""
 
 import json
 import os
 import os.path as osp
 import re
+import signal
 import subprocess
+import sys
+import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -411,3 +415,63 @@ def test_train_torch_sh_refuses(tmp_path, case):
     assert res.returncode == 1
     assert ("Please delete it" if case == "existing"
             else "refusing") in res.stdout
+
+
+def test_sigint_logs_the_launch_line_after_the_emergency_save(tmp_path,
+                                                              data):
+    """The CLI in a subprocess at toy width, sent SIGINT once its first
+    checkpoint is written and the loop waits outside a step: its log ends
+    with the emergency save of that iteration, then one parsable ``kernel
+    launches:`` line (every count zero on the CPU), then the
+    KeyboardInterrupt."""
+    exp, ready = tmp_path / "exp", tmp_path / "ready"
+    os.makedirs(exp)
+    with open(exp / "train.yml", "w") as f:
+        yaml.safe_dump(_opt(data, total_iter=50, ckpt_freq=1), f)
+    # the first periodic state save signals, then waits for the SIGINT
+    code = textwrap.dedent(f"""
+        import sys, time
+        from tecogan_tpu_torch import main
+        from tecogan_tpu_torch.models import vsr_model
+
+        save = vsr_model.VSRModel.save_training_state
+        waited = []
+
+        def save_then_wait(self, state, it):
+            save(self, state, it)
+            if not waited:
+                waited.append(it)
+                open({str(ready)!r}, "w").close()
+                time.sleep(120)
+
+        vsr_model.VSRModel.save_training_state = save_then_wait
+        main.main(sys.argv[1:])
+        """)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "--exp_dir", str(exp), "--mode",
+         "train", "--opt", str(exp / "train.yml"), "--gpu_ids", "-1"],
+        cwd=_REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while not ready.exists():
+            assert proc.poll() is None, proc.communicate()[0][-3000:]
+            assert time.monotonic() < deadline, "no checkpoint in 120 s"
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGINT)
+        out = proc.communicate(timeout=120)[0]
+    finally:
+        proc.kill()
+    assert proc.returncode != 0
+    lines = out.splitlines()
+    saved = [i for i, ln in enumerate(lines)
+             if "Emergency training state saved at iter 1" in ln]
+    launch = [i for i, ln in enumerate(lines) if "kernel launches: " in ln]
+    assert len(saved) == 1 and len(launch) == 1, out[-3000:]
+    assert saved[0] < launch[0]
+    assert not any(re.search(r"\[epoch: \d+ \| iter: ", ln)
+                   for ln in lines[saved[0]:])
+    counts = json.loads(lines[launch[0]].split("kernel launches: ", 1)[1])
+    assert counts and not any(counts.values()), counts
+    assert "KeyboardInterrupt" in "\n".join(lines[launch[0] + 1:])
+    assert _ckpts(exp) == ["G_iter1.npz", "state_iter1.pth"]
