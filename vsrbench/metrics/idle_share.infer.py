@@ -1,0 +1,10 @@
+"""The share of the traced sub-window with no device operation running."""
+
+
+def read(rec):
+    if rec.get("kind") != "infer":
+        return None
+    tr = rec["trace"]
+    if tr.window_s <= 0 or tr.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
