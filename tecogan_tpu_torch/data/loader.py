@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 
 import numpy as np
 
 from ..parallel.dist import shard_rows
+from ..utils import tracing
 
 __all__ = ["TrainLoader"]
 
@@ -51,7 +53,14 @@ class TrainLoader:
         ``start_batch`` skips the first batches of the epoch WITHOUT
         assembling them (resume path): determinism is untouched because
         each sample's RNG stream is keyed by (seed, epoch, dataset index),
-        not by batch position."""
+        not by batch position.
+
+        Counters (``utils.tracing``): the producer thread adds each batch
+        it builds and its seconds inside it (``loader.assembled``,
+        ``loader.assemble_s``); the consumer, once an epoch's first batch
+        arrives, the epoch and its seconds from the epoch's start
+        (``loader.epoch_starts``, ``loader.epoch_start_wait_s``)."""
+        t_start = time.perf_counter()
         n = len(self.dataset)
         order = np.random.default_rng((self.seed, epoch_idx)).permutation(n)
         n_batches = len(self)
@@ -115,7 +124,12 @@ class TrainLoader:
                     for idxs in batch_idx:
                         if stop.is_set():
                             return
-                        if not put_or_stop(make_batch(pool, idxs)):
+                        t0 = time.perf_counter()
+                        batch = make_batch(pool, idxs)
+                        tracing.add("loader.assemble_s",
+                                    time.perf_counter() - t0)
+                        tracing.add("loader.assembled", 1)
+                        if not put_or_stop(batch):
                             return
             except Exception as e:  # surface worker errors to the consumer
                 put_or_stop(e)
@@ -136,6 +150,11 @@ class TrainLoader:
                     break
                 if isinstance(item, Exception):
                     raise item
+                if t_start is not None:
+                    tracing.add("loader.epoch_start_wait_s",
+                                time.perf_counter() - t_start)
+                    tracing.add("loader.epoch_starts", 1)
+                    t_start = None
                 yield item
         finally:
             stop.set()

@@ -44,6 +44,7 @@ from ...ops.spatial import space_to_depth
 from ...ops.warp_cuda import warp_planes
 from ...ops.warp_phases import phase_planes, warp_phases
 from ...ops.warp_vjp import backward_warp_diff
+from ...utils import tracing
 from .fnet import FNet
 from .srnet import SRNet
 
@@ -376,7 +377,10 @@ def stream_frames(net: FRNet, lr_seqs: torch.Tensor, cfg: FRNetConfig,
     dtype, with no mode of its own: the function a serving program traces
     (``serving.export_stream``). Each frame's uint8 output is kept as it is
     made and the frames are stacked once at the end, so a trace holds no
-    in-place write into a slice of the output."""
+    in-place write into a slice of the output. While a profiler records,
+    each chunk is the span ``tecogan.infer.chunk`` over ``infer.fnet``
+    (FNet on the chunk's frame pairs) and ``infer.recurrence`` (its warps,
+    SRNet and quantisation); no span is per frame."""
     dt = cfg.dtype
     device = next(net.parameters()).device
     n, t, h, w, c = lr_seqs.shape
@@ -406,12 +410,15 @@ def stream_frames(net: FRNet, lr_seqs: torch.Tensor, cfg: FRNetConfig,
     lr_prev = torch.zeros((n, c, h, w), dtype=dt, device=device)
     frames = []
     for k in range(n_chunks):
-        cur = x[:, k * chunk:(k + 1) * chunk]
-        prevs = torch.cat([lr_prev[:, None], cur[:, :-1]], dim=1)
-        lr_flow = net.fnet(cur.reshape(n * chunk, c, h, w),
-                           prevs.reshape(n * chunk, c, h, w))
-        hr_prev = run(cur, lr_flow, hr_prev, frames)
-        lr_prev = cur[:, -1]
+        with tracing.span("infer.chunk"):
+            cur = x[:, k * chunk:(k + 1) * chunk]
+            prevs = torch.cat([lr_prev[:, None], cur[:, :-1]], dim=1)
+            with tracing.span("infer.fnet"):
+                lr_flow = net.fnet(cur.reshape(n * chunk, c, h, w),
+                                   prevs.reshape(n * chunk, c, h, w))
+            with tracing.span("infer.recurrence"):
+                hr_prev = run(cur, lr_flow, hr_prev, frames)
+            lr_prev = cur[:, -1]
     return torch.stack(frames[:t], dim=1)
 
 
