@@ -6,6 +6,12 @@ with floor), three decoder levels (two 3x3 convs + LeakyReLU, then a 2x
 half-pixel bilinear upsample) and a flow head whose output is
 ``tanh(.) * 24``. Module names follow the reference's state dict
 (``encoder1.0``, ``decoder1.2``, ``flow.0``, ...).
+
+In bf16 the activations between the input's cat and the flow head are
+channels_last, as a bf16 FNet's convolution weights are
+(``nn.LayoutFollowsDtype``), and the decoders' upsample runs on the NHWC
+memory; in fp32 everything is NCHW. Either way the flow leaves contiguous
+NCHW.
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.resize import upsample_bilinear
+from ...nn import LayoutFollowsDtype, cat_channels, network_layout
+from ...ops.resize import upsample_bilinear, upsample_nhwc
 
 _ENC = [32, 64, 128]
 _DEC = [256, 128, 64]
@@ -24,7 +31,7 @@ def _conv(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, 1, 1)
 
 
-class FNet(nn.Module):
+class FNet(LayoutFollowsDtype):
     def __init__(self, in_nc: int = 3):
         super().__init__()
         cin = 2 * in_nc
@@ -44,8 +51,13 @@ class FNet(nn.Module):
     def forward(self, x_cur: torch.Tensor, x_prev: torch.Tensor):
         """Flow from x_cur to x_prev: (n, c, h, w) x2 -> (n, 2, h', w') with
         h' = (h // 8) * 8 (the max-pools floor odd sizes)."""
-        out = torch.cat([x_cur, x_prev], dim=1)
+        fmt = network_layout(x_cur)
+        out = cat_channels([x_cur, x_prev], fmt)
         out = self.encoder3(self.encoder2(self.encoder1(out)))
         for dec in (self.decoder1, self.decoder2, self.decoder3):
-            out = upsample_bilinear(dec(out), 2)
-        return torch.tanh(self.flow(out)) * _MAX_VELOCITY
+            out = dec(out)
+            if fmt == torch.channels_last:
+                out = upsample_nhwc(out, "bilinear_half_pixel", 2)
+            else:
+                out = upsample_bilinear(out, 2)
+        return torch.tanh(self.flow(out).contiguous()) * _MAX_VELOCITY

@@ -12,6 +12,11 @@ folded conv_in, planes form) produce the same outputs and are not ported.
 order (the packed16 recurrence's warp writes it so), and with
 ``row_masks``/``residual_mh`` runs the row-folded multi-stream layout, the
 counterpart of ``srnet_apply_planes(row_masks=, residual_mh=)``.
+
+In bf16 the activations from conv_in's input to conv_out's output are
+channels_last, as a bf16 SRNet's convolution weights are
+(``nn.LayoutFollowsDtype``); in fp32 everything is NCHW. The global
+residual is NCHW in both, and the HR frame leaves contiguous NCHW.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...nn import LayoutFollowsDtype, cat_channels, network_layout
 from ...ops.resize import (_device_matrix, apply_separable,
                            get_upsampling_fn, upsample_mode)
 from ...ops.spatial import space_to_depth
@@ -37,7 +43,7 @@ class ResidualBlock(nn.Module):
         return x + self.conv(x)
 
 
-class SRNet(nn.Module):
+class SRNet(LayoutFollowsDtype):
     def __init__(self, in_nc: int = 3, out_nc: int = 3, nf: int = 64,
                  nb: int = 10, scale: int = 4, degradation: str = "BD"):
         super().__init__()
@@ -77,10 +83,12 @@ class SRNet(nn.Module):
         ``residual_mh`` replaces the global residual's vertical upsampling
         matrix (block-diagonal over the streams).
         """
-        out = torch.cat([lr_curr, hr_packed], 1)
+        out = cat_channels([lr_curr, hr_packed], network_layout(lr_curr))
         if row_masks is None:
             out = self.conv_up(self.resblocks(self.conv_in(out)))
-            return self.conv_out(out) + self.upsample(lr_curr)
+            # the NCHW residual first: the sum takes its layout, so the HR
+            # frame leaves contiguous NCHW with no copy of its own
+            return self.upsample(lr_curr) + self.conv_out(out)
         m_lr = row_masks["lr"]
         out = self.conv_in(out) * m_lr
         for block in self.resblocks:
@@ -94,4 +102,4 @@ class SRNet(nn.Module):
         mw = _device_matrix(self.upsample_mode, lr_curr.shape[-1],
                             lr_curr.dtype, lr_curr.device, scale=self.scale)
         residual = apply_separable(lr_curr, residual_mh.to(lr_curr.dtype), mw)
-        return self.conv_out(out) + residual
+        return residual + self.conv_out(out)

@@ -56,7 +56,7 @@ from typing import NamedTuple
 import torch
 from torch.func import functional_call
 
-from ..nn import cast_params, training_numerics
+from ..nn import cast_params, conv_format, training_numerics
 from ..ops.degrade import bd_border_size, downsample_bd
 from ..ops.warp_vjp import backward_warp_diff
 from ..parallel import dist
@@ -235,7 +235,7 @@ def frvsr_train_step(state, batch, *, cfg_g, tcfg: TrainConfig, sched_g,
         net, opt = state["g"], state["opt_g"]
         params = dict(net.named_parameters())
         if tcfg.mixed_precision:
-            params = cast_params(params, dt)
+            params = cast_params(params, dt, conv_format(dt))
         out = forward_sequence(net, lr, cfg_g, params)
     with tracing.span("train.g_losses"):
         l_pix = pix_w * pix_crit(out["hr_data"], gt)
@@ -368,7 +368,7 @@ def tecogan_train_step(state, batch, *, cfg_g, cfg_d, tcfg: TrainConfig,
         # === G forward, once: the D phase and the G losses share it ===
         params_g = dict(net_g.named_parameters())
         if mixed:
-            params_g = cast_params(params_g, dt)
+            params_g = cast_params(params_g, dt, conv_format(dt))
         out = forward_sequence(net_g, lr, cfg_g, params_g)
         hr = out["hr_data"]
         hr_c, gt_c = hr.permute(0, 1, 4, 2, 3), gt.permute(0, 1, 4, 2, 3)

@@ -1,8 +1,9 @@
 """Layer helpers (the port of ``tecogan_tpu/nn.py``'s ``cast_params`` and
-``batch_norm``), the devices a run takes and the numerics inference and
-training run under. Its ``leaky_relu`` and ``max_pool_2x2`` are torch's
-``nn.LeakyReLU(0.2)`` and ``nn.MaxPool2d(2, 2)`` (floor semantics), which
-the networks hold as modules in the reference's layout."""
+``batch_norm``), the generator's memory layout, the devices a run takes and
+the numerics inference and training run under. Its ``leaky_relu`` and
+``max_pool_2x2`` are torch's ``nn.LeakyReLU(0.2)`` and ``nn.MaxPool2d(2,
+2)`` (floor semantics), which the networks hold as modules in the
+reference's layout."""
 
 from __future__ import annotations
 
@@ -14,22 +15,81 @@ import torch.nn.functional as F
 from torch import nn
 
 from .parallel import dist
+from .utils import tracing
 
-__all__ = ["cast_params", "batch_norm", "no_tf32", "inference_numerics",
-           "training_numerics", "F64ForwardConv2d", "conv2d_f64_forward",
-           "init_torch_default", "select_device", "select_devices"]
+__all__ = ["cast_params", "conv_format", "network_layout", "cat_channels",
+           "LayoutFollowsDtype", "batch_norm", "no_tf32",
+           "inference_numerics", "training_numerics", "F64ForwardConv2d",
+           "conv2d_f64_forward", "init_torch_default", "select_device",
+           "select_devices"]
 
 
-def cast_params(params: dict, dtype: torch.dtype) -> dict:
-    """Cast the floating tensors of a name -> tensor dict to ``dtype``.
+def cast_params(params: dict, dtype: torch.dtype,
+                memory_format: torch.memory_format = torch.preserve_format
+                ) -> dict:
+    """Cast the floating tensors of a name -> tensor dict to ``dtype``;
+    the 4-D ones (convolution weights) take ``memory_format`` in the same
+    copy (the generator's: ``conv_format(dtype)``).
 
     The casts are differentiable copies: a forward run on them (through
     ``torch.func.functional_call``) sends its gradients back, in fp32, to
     the fp32 master parameters they were cast from. Other tensors pass
     through unchanged.
     """
-    return {k: v.to(dtype) if v.is_floating_point() else v
-            for k, v in params.items()}
+    return {k: v.to(dtype, memory_format=memory_format if v.dim() == 4
+                    else torch.preserve_format)
+            if v.is_floating_point() else v for k, v in params.items()}
+
+
+def conv_format(dtype: torch.dtype) -> torch.memory_format:
+    """The memory format of FNet's and SRNet's interior activations and
+    convolution weights in ``dtype``: channels_last in bf16, whose cuDNN
+    convolutions on the H100 are NHWC (an NCHW operand costs a transpose
+    into the convolution and another out of it); contiguous NCHW in any
+    other dtype (fp32's route, whose every convolution pass training holds
+    to float64)."""
+    if dtype == torch.bfloat16:
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def network_layout(x: torch.Tensor) -> torch.memory_format:
+    """``conv_format`` of the input ``x`` of one FNet or SRNet forward,
+    counted in ``tracing``'s ``networks.nhwc_forwards`` (channels_last) or
+    ``networks.nchw_forwards``."""
+    fmt = conv_format(x.dtype)
+    tracing.add("networks.nhwc_forwards" if fmt == torch.channels_last
+                else "networks.nchw_forwards", 1)
+    return fmt
+
+
+def cat_channels(tensors, memory_format: torch.memory_format
+                 ) -> torch.Tensor:
+    """``torch.cat(tensors, 1)`` of (n, c_i, h, w) tensors, channels_last
+    for ``memory_format`` channels_last: the NHWC views are joined along
+    their last dimension by the cat's one copy."""
+    if memory_format == torch.channels_last:
+        return torch.cat([t.permute(0, 2, 3, 1) for t in tensors],
+                         3).permute(0, 3, 1, 2)
+    return torch.cat(tensors, 1)
+
+
+def _to_conv_format(t: torch.Tensor) -> torch.Tensor:
+    if t.dim() != 4 or not t.is_floating_point():
+        return t
+    return t.contiguous(memory_format=conv_format(t.dtype))
+
+
+class LayoutFollowsDtype(nn.Module):
+    """A module whose 4-D parameters (convolution weights) take
+    ``conv_format`` of their dtype after every cast or move: ``.to``,
+    ``.bfloat16()``, ``.float()``, ``.cuda()`` and ``to_empty`` all end in
+    ``_apply``. So a bf16 copy of FNet or SRNet hands cuDNN channels_last
+    weights, with no copy per call, and an fp32 one NCHW weights."""
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        return super()._apply(_to_conv_format, recurse)
 
 
 def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,

@@ -4,7 +4,8 @@ The numpy matrix builders are copied from ``tecogan_tpu/ops/resize.py``
 (lines 48-245); the port cannot import that module, which imports jax. Every
 resampling the slice needs is linear and separable: an ``(out, in)`` matrix
 per axis, built once on the host and applied as two matrix products over
-the last two (spatial) dimensions.
+the last two (spatial) dimensions, or, for a channels_last activation, as
+two plain GEMMs over its NHWC memory (``apply_separable_nhwc``).
 
 Modes:
 
@@ -32,6 +33,8 @@ from torch.utils._python_dispatch import _disable_current_modes
 __all__ = [
     "resize_matrix",
     "apply_separable",
+    "apply_separable_nhwc",
+    "upsample_nhwc",
     "upsample_bilinear",
     "upsample_tecogan_bicubic",
     "get_upsampling_fn",
@@ -246,11 +249,35 @@ def apply_separable(x: torch.Tensor, mh: torch.Tensor,
     return torch.matmul(torch.matmul(mh, x), mw.transpose(0, 1))
 
 
-def _upsample(x: torch.Tensor, mode: str, scale: int) -> torch.Tensor:
+def apply_separable_nhwc(x: torch.Tensor, mh: torch.Tensor,
+                         mw: torch.Tensor) -> torch.Tensor:
+    """``apply_separable`` of a channels_last (n, c, h, w) tensor, on its
+    NHWC memory as two plain GEMMs with no copy: the rows over (n, h, w*c),
+    then the columns over (n*H, w, c). Returns a channels_last (n, c, H,
+    W). (``torch.matmul`` on the NCHW view would copy it to contiguous
+    before each product.)"""
+    n, c, h, w = x.shape
+    big_h, big_w = mh.shape[0], mw.shape[0]
+    rows = torch.matmul(mh, x.permute(0, 2, 3, 1).reshape(n, h, w * c))
+    cols = torch.matmul(mw, rows.reshape(n * big_h, w, c))
+    return cols.reshape(n, big_h, big_w, c).permute(0, 3, 1, 2)
+
+
+def _matrices(x: torch.Tensor, mode: str, scale: int):
     h, w = x.shape[-2], x.shape[-1]
-    mh = _device_matrix(mode, h, x.dtype, x.device, scale=scale)
-    mw = _device_matrix(mode, w, x.dtype, x.device, scale=scale)
-    return apply_separable(x, mh, mw)
+    return (_device_matrix(mode, h, x.dtype, x.device, scale=scale),
+            _device_matrix(mode, w, x.dtype, x.device, scale=scale))
+
+
+def _upsample(x: torch.Tensor, mode: str, scale: int) -> torch.Tensor:
+    return apply_separable(x, *_matrices(x, mode, scale))
+
+
+def upsample_nhwc(x: torch.Tensor, mode: str, scale: int) -> torch.Tensor:
+    """x channels_last (n, c, h, w) -> channels_last (n, c, s*h, s*w) by
+    the ``mode`` upsampler's matrices (``bilinear_half_pixel``,
+    ``tecogan_bicubic``), on its NHWC memory."""
+    return apply_separable_nhwc(x, *_matrices(x, mode, scale))
 
 
 def upsample_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:

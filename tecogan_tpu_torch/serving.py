@@ -42,7 +42,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from .nn import inference_numerics
+from .nn import cast_params, conv_format, inference_numerics
 # importing the kernels' modules registers their operators
 from .ops import warp_cuda, warp_phases  # noqa: F401
 from .utils import ckpt as ckpt_io
@@ -107,7 +107,8 @@ class _Program(nn.Module):
         self.dtype = cfg.dtype
 
     def forward(self, params: dict, lr_seqs: torch.Tensor) -> torch.Tensor:
-        weights = {f"net.{k}": v.to(self.dtype) for k, v in params.items()}
+        weights = {f"net.{k}": v for k, v in cast_params(
+            params, self.dtype, conv_format(self.dtype)).items()}
         return functional_call(self.stream, weights, (lr_seqs,))
 
 

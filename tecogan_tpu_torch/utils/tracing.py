@@ -30,7 +30,10 @@ kernels' launch counts stay with their wrappers (``ops.kernel_launches``).
   producer thread built, and its seconds inside them;
 - ``loader.epoch_starts``, ``loader.epoch_start_wait_s``: epochs whose
   first batch the consumer received, and its seconds waiting for each
-  epoch's first batch (the loader's restart).
+  epoch's first batch (the loader's restart);
+- ``networks.nhwc_forwards``, ``networks.nchw_forwards``: FNet and SRNet
+  forwards (the launching thread's) that ran channels_last (bf16) and
+  NCHW (any other dtype), one a forward (``nn.network_layout``).
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ SPAN_LOG = 16384  # spans kept in memory, the newest
 _NULL = contextlib.nullcontext()
 _LOG: collections.deque = collections.deque(maxlen=SPAN_LOG)
 _COUNTERS = {"loader.assembled": 0, "loader.assemble_s": 0.0,
-             "loader.epoch_starts": 0, "loader.epoch_start_wait_s": 0.0}
+             "loader.epoch_starts": 0, "loader.epoch_start_wait_s": 0.0,
+             "networks.nhwc_forwards": 0, "networks.nchw_forwards": 0}
 
 
 class SpanRecord(NamedTuple):

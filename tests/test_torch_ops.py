@@ -49,6 +49,25 @@ def test_upsample_matches_jax(rng, fn, scale):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["bilinear_half_pixel", "tecogan_bicubic"])
+@pytest.mark.parametrize("scale", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_upsample_nhwc_matches_nchw(rng, mode, scale, dtype):
+    """The separable upsample on a channels_last tensor's NHWC memory
+    (FNet's bf16 route) against the NCHW form on the same values."""
+    x = torch.from_numpy(rng.random((2, 5, 9, 13)).astype(np.float32)).to(
+        dtype)
+    want = tresize.get_upsampling_fn(
+        scale, "BI" if mode == "bilinear_half_pixel" else "BD")(x)
+    got = tresize.upsample_nhwc(
+        x.contiguous(memory_format=torch.channels_last), mode, scale)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=1e-5)
+
+
 def test_get_upsampling_fn():
     x = torch.rand(1, 3, 5, 6)
     for deg, fn in (("BD", tops.upsample_tecogan_bicubic),
