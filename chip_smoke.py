@@ -5143,6 +5143,224 @@ def _start_weights(opt):
     return build(gen, "cuda").state_dict()
 
 
+# BasicVSR++'s shapes: 4 clips of LR 180x320 (REDS4), 64 channels, 16
+# deformable groups
+BVPP_N, BVPP_LR, BVPP_M, BVPP_G = 4, (180, 320), 64, 16
+
+
+def _dcn_case(gen, dev, n, h, w, m, groups, dtype, sigma=4.0):
+    """A DCN's operands at BasicVSR++'s layout: x (n, 2m, h, w) and raw (n,
+    27 groups, h, w) channels_last in ``dtype``, two smooth fp32 flows of
+    about ``sigma`` pixels (some samples leave the frame)."""
+    import torch
+
+    x = torch.randn((n, 2 * m, h, w), generator=gen, device=dev).to(
+        dtype, memory_format=torch.channels_last)
+    raw = torch.randn((n, 27 * groups, h, w), generator=gen,
+                      device=dev).to(dtype, memory_format=torch.channels_last)
+    flows = [_smooth_flow(gen, dev, n, h, w, sigma) for _ in range(2)]
+    return x, raw, flows
+
+
+def _dcn_library(x, raw, f1, f2, weight, bias, mag, groups):
+    """The DCN composed of library calls, a yardstick only: the offsets and
+    the mask, one ``F.grid_sample`` (zeros, align_corners=True) of every
+    group at its nine taps, the mask, and ``torch.addmm``."""
+    import torch
+    import torch.nn.functional as F
+
+    n, c, h, w = x.shape
+    cg = c // groups
+    r = raw.float()
+    half = groups // 2
+    fl = torch.cat([f1[:, None].expand(n, half, 2, h, w),
+                    f2[:, None].expand(n, groups - half, 2, h, w)], 1)
+    dy = mag * torch.tanh(r[:, 0:18 * groups:2].reshape(n, groups, 9, h, w)) \
+        + fl[:, :, None, 1]
+    dx = mag * torch.tanh(r[:, 1:18 * groups:2].reshape(n, groups, 9, h, w)) \
+        + fl[:, :, None, 0]
+    k = torch.arange(9, device=x.device)
+    sy = (torch.arange(h, device=x.device)[:, None] + k[:, None, None] // 3
+          - 1) + dy
+    sx = (torch.arange(w, device=x.device)[None, :] + k[:, None, None] % 3
+          - 1) + dx
+    grid = torch.stack([sx * (2.0 / (w - 1)) - 1.0, sy * (2.0 / (h - 1)) - 1.0],
+                       -1).reshape(n * groups, 9 * h, w, 2)
+    val = F.grid_sample(x.reshape(n * groups, cg, h, w).float(), grid,
+                        padding_mode="zeros", align_corners=True)
+    val = val.reshape(n, groups, cg, 9, h, w) * torch.sigmoid(
+        r[:, 18 * groups:].reshape(n, groups, 1, 9, h, w))
+    col = val.permute(0, 4, 5, 3, 1, 2).reshape(n * h * w, 9 * c).to(x.dtype)
+    wt = weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1).t()
+    return torch.addmm(bias, col, wt)
+
+
+def phase_dcn(card):
+    """K1's zero padding and the DCN's column gather against their plain
+    versions on the card at BasicVSR++'s shapes, each timed beside its
+    bound, its plain version and a library yardstick. Returns their
+    numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from tecogan_tpu_torch.ops import dcn as dcn_ops
+    from tecogan_tpu_torch.ops.warp_cuda import (warp_zero,
+                                                 warp_zero_reference)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n, (h, w), m, groups = BVPP_N, BVPP_LR, BVPP_M, BVPP_G
+    out = {}
+    # K1 zero: a 64-channel bf16 channels_last feature map and a 2-channel
+    # fp32 flow, each along a smooth fp32 flow of 4 and of 30 pixels
+    for sigma in (4.0, 30.0):
+        flow = _smooth_flow(gen, dev, n, h, w, sigma).permute(0, 2, 3, 1)
+        feat = torch.randn((n, m, h, w), generator=gen, device=dev).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        fl2 = torch.randn((n, 2, h, w), generator=gen, device=dev)
+        for img in (feat, fl2):
+            got = warp_zero(img, flow)
+            torch.cuda.synchronize()
+            want = warp_zero_reference(img, flow)
+            lib = F.grid_sample(img.float(), _grid(flow, torch.float32),
+                                padding_mode="zeros", align_corners=True)
+            _require(torch.equal(got, want) and got.stride() == img.stride(),
+                     f"K1 zero disagrees with its plain version ({img.dtype}, "
+                     f"sigma {sigma}): max abs err "
+                     f"{float((got.float() - want.float()).abs().max())}")
+            lib_err = float((got.float() - lib).abs().max())
+            # grid_sample's normalised coordinates move a sample point by
+            # ulps of W (about 3e-5 px at W 320), times the image's slope;
+            # bf16 rounds the output to 8 bits
+            tol = (1e-3 if img.dtype == torch.float32 else 2 ** -7) * float(
+                lib.abs().max())
+            _require(lib_err <= tol, f"K1 zero against grid_sample: "
+                     f"{lib_err} over {tol}")
+            print(f"K1 zero ({tuple(img.shape)} {img.dtype}, sigma {sigma}): "
+                  f"bit-identical to its plain version; grid_sample max abs "
+                  f"err {lib_err:.3g}")
+    feat_bytes = 2 * feat.numel() * feat.element_size() + flow.numel() * 4
+    t = _time_kernel(
+        "K1 zero (4,64,180,320) bf16", card, lambda: warp_zero(feat, flow),
+        lambda: warp_zero_reference(feat, flow),
+        lambda: F.grid_sample(feat, _grid(flow, torch.bfloat16),
+                              padding_mode="zeros", align_corners=True),
+        (feat_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    out["K1 zero"] = dict(t, max_abs_err=0.0)
+
+    # the DCN: columns bit-near the plain version (tanhf and expf are
+    # CUDA's: a sample point may move by an ulp), in both load paths
+    weight = (torch.randn((m, 2 * m, 3, 3), generator=gen, device=dev)
+              / 34.0).to(torch.bfloat16, memory_format=torch.channels_last)
+    bias = (torch.randn((m,), generator=gen, device=dev) / 34.0).bfloat16()
+    x, raw, (f1, f2) = _dcn_case(gen, dev, n, h, w, m, groups, torch.bfloat16)
+    for label, xx, rr in (("bf16 channels_last", x, raw),
+                          ("fp32 NCHW", x[:1].float().contiguous(),
+                           raw[:1].float().contiguous())):
+        ff = (f1[:len(xx)], f2[:len(xx)])
+        got = dcn_ops.dcn_columns(xx, rr, *ff, 10.0, groups)
+        torch.cuda.synchronize()
+        want = dcn_ops.dcn_columns_reference(xx, rr, *ff, 10.0, groups)
+        err = (got.float() - want.float()).abs()
+        scale = float(want.float().abs().max())
+        tol = 1e-4 * scale if xx.dtype == torch.float32 else 2 ** -7 * scale
+        bad = float((err > tol).float().mean())
+        print(f"DCN columns {label} {tuple(xx.shape)}: max abs err "
+              f"{float(err.max()):.3g} (values to {scale:.3g}), share over "
+              f"{tol:.3g}: {bad:.3g}")
+        _require(bad < 1e-5, f"DCN columns ({label}) disagree with their "
+                 f"plain version: {bad} of the values over {tol}")
+    dcn = lambda: dcn_ops.modulated_deform_conv(x, raw, f1, f2, weight, bias,
+                                                10.0, groups)
+    lib_out = _dcn_library(x, raw, f1, f2, weight, bias, 10.0, groups)
+    got = dcn().reshape(n, m, h * w).transpose(1, 2).reshape(-1, m)
+    lib_err = float((got.float() - lib_out.float()).abs().max())
+    print(f"DCN against its library composition: max abs err {lib_err:.3g} "
+          f"(outputs to {float(lib_out.float().abs().max()):.3g})")
+    nbytes = (n * h * w * ((2 * m + 27 * groups + m) * 2 + 16)
+              + weight.numel() * 2 + m * 2)
+    flops = 2 * n * h * w * 2 * m * 9 * m
+    bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (flops / 989e12 * 1e3, "bf16 FLOPs"))
+    t = _time_kernel(
+        "DCN (4,128,180,320) bf16", card, dcn,
+        lambda: dcn_ops.dcn_columns_reference(x, raw, f1, f2, 10.0, groups)
+        @ weight.permute(0, 2, 3, 1).reshape(m, -1).t(),
+        lambda: _dcn_library(x, raw, f1, f2, weight, bias, 10.0, groups),
+        bound)
+    cols = lambda: dcn_ops.dcn_columns(x, raw, f1, f2, 10.0, groups)
+    t["columns_device_ms"] = _device_ms(cols)
+    print(f"DCN column gather alone: device {_us(t['columns_device_ms'])}")
+    out["DCN"] = dict(t, max_abs_err=lib_err)
+    return out
+
+
+def phase_basicvsrpp(card):
+    """BasicVSR++ through ``infer_clip_batch`` on the card against the
+    plain reference (``vsrbench/reference/basicvsrpp.py``) at the published
+    widths on 2 clips of 8 frames of 64x96, fp32 (TF32 off) and bf16, with
+    its launch counts. Returns the counts."""
+    import torch
+
+    from tecogan_tpu_torch import ops
+    from tecogan_tpu_torch.models.networks import (BasicVSRPP,
+                                                   BasicVSRPPConfig,
+                                                   infer_clip_batch)
+    from tecogan_tpu_torch.nn import inference_numerics
+    from vsrbench import weights
+    from vsrbench.drivers.infer_clips import moving_textures
+    from vsrbench.reference import basicvsrpp as ref
+    from vsrbench.reference.train import no_tf32
+
+    dev = torch.device("cuda", 0)
+    gen = weights.generator(SEED + 13, dev)
+    n, t, h, w = 2, 8, 64, 96
+    sd = weights.random_state(weights.layout(ref.BasicVSRPlusPlus), gen, dev)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "vsrbench", "configs",
+                           "basicvsrpp_4x_reds.json")) as f:
+        scale = json.load(f)["draw_scale"]  # the benchmark's draw
+    for k, v in sd.items():
+        for suffix, s in scale.items():
+            if k.endswith(suffix):
+                v.mul_(s)
+    lr = moving_textures({"streams": n, "frames": t, "height": h, "width": w,
+                          "waves": 8, "max_freq": 0.12, "max_speed": 2.5},
+                         gen, dev)
+    net_ref = ref.BasicVSRPlusPlus().to(dev).eval()
+    net_ref.load_state_dict(sd)
+    with no_tf32():
+        want = net_ref.infer(lr)
+    launches = {}
+    for dt, limit in (("float32", 0.001), ("bfloat16", 0.1)):
+        cfg = BasicVSRPPConfig(compute_dtype=dt)
+        net = BasicVSRPP.from_state_dict(cfg, sd, dev).to(cfg.dtype)
+        before = ops.kernel_launches()
+        with inference_numerics(dt):
+            got = infer_clip_batch(net, lr, cfg, chunk=4)
+        torch.cuda.synchronize()
+        after = ops.kernel_launches()
+        d = (got.int() - want.int()).abs().float()
+        worst = float(d.mean(dim=(2, 3, 4)).max())
+        counts = {k: after[k] - before[k] for k in ("K1", "K1 zero", "DCN")}
+        print(f"BasicVSR++ {dt} (2 clips x 8 frames of 64x96, 64 channels, "
+              f"7 blocks) against the reference: worst frame's mean "
+              f"{worst:.4g} gray levels, max {float(d.max()):.0f}; "
+              f"launches {counts} on {card}")
+        _require(worst <= limit, f"BasicVSR++ {dt} departs from the "
+                 f"reference: {worst} over {limit}")
+        # the DCN once per aligned step of each branch; K1 zero 1 + 3 a
+        # step after the second; K1 at SPyNet's 6 levels, both directions,
+        # one pass per chunk of 4 pairs
+        _require(counts["DCN"] == 4 * (t - 1)
+                 and counts["K1 zero"] == 4 * (1 + 3 * (t - 2))
+                 and counts["K1"] == 2 * 6 * -(-(t - 1) // 4),
+                 f"BasicVSR++ launches {counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5172,6 +5390,8 @@ def main() -> int:
 
     times = {"K1": phase_k1(card), "K1 band": phase_k1_band(card),
              "K5": phase_k5(card), "K1 window": phase_k1_window(card)}
+    times.update(phase_dcn(card))
+    bvpp_launches = phase_basicvsrpp(card)
 
     rng = np.random.default_rng(SEED)
     params = _jax_layout_params(rng, NF, NB, SCALE)
@@ -5187,6 +5407,9 @@ def main() -> int:
     sd = state_dict_from_jax(params, NB, SCALE)
     phase_card_vs_cpu(sd, rng)
     launches["K1 window"] = phase_sp(card, params)
+    launches["K1"] += bvpp_launches["K1"]
+    launches["K1 zero"] = bvpp_launches["K1 zero"]
+    launches["DCN"] = bvpp_launches["DCN"]
 
     times.update(phase_k234(card))
     phase_assembly_warps(card)
@@ -5235,7 +5458,11 @@ def main() -> int:
              "tecogan_tpu/ops/warp_vjp.py:156, "
              "tecogan_tpu/ops/warp_vjp.py:288"),
             ("K5", "warp_phases", "tecogan_tpu_torch/csrc/warp_phases.cu",
-             "tecogan_tpu/ops/warp_pallas.py:324")):
+             "tecogan_tpu/ops/warp_pallas.py:324"),
+            ("K1 zero", "warp_zero", "tecogan_tpu_torch/csrc/warp_planes.cu",
+             "none (BasicVSR++'s flow_warp)"),
+            ("DCN", "dcn_columns", "tecogan_tpu_torch/csrc/dcn.cu",
+             "none (mmcv's modulated_deform_conv2d)")):
         t = times[key]
         _require(launches[key] > 0, f"{name} was not launched on its path")
         rows.append({"name": name, "route": "cuda", "source": source,

@@ -39,6 +39,14 @@
 // Its bytes are the plain mode's for the output's rows (the slab's extra
 // rows are not all read).
 //
+// Zero-padding mode (BasicVSR++'s flow_warp: grid_sample with
+// padding_mode="zeros", align_corners=True): pixel (i, j) samples at
+// (i + fy, j + fx) with no clamp, and a tap outside the image reads 0
+// (warp_common.cuh, zero_taps). It is the template flag kZero of the same
+// body on K2's strides, so a channels_last feature map needs no copy; the
+// other instantiations compile as before. It replaces no TPU kernel: the
+// JAX package has no BasicVSR++.
+//
 // Bound: bytes. At bf16 each pixel moves 2 flow values, 3 image values in
 // (each read once) and 3 out: 10.98 MB for K1's (1, 3, 536, 1280) frame
 // (3.28 us at 3.35 TB/s), 44.6 MB for 4 folded streams (13.3 us), and
@@ -96,7 +104,8 @@ struct Window {
   int hx, out_y0, x_y0, h_glob;
 };
 
-template <typename TI, typename TF, int C, bool kStrided, bool kWindow>
+template <typename TI, typename TF, int C, bool kStrided, bool kWindow,
+          bool kZero = false>
 __global__ void __launch_bounds__(32 * kTileRows)
     warp_planes_kernel(const TI* __restrict__ planes,
                        const TF* __restrict__ flow, TI* __restrict__ out,
@@ -152,6 +161,20 @@ __global__ void __launch_bounds__(32 * kTileRows)
   float w00[kTileSteps], w01[kTileSteps], w10[kTileSteps], w11[kTileSteps];
 #pragma unroll
   for (int k = 0; k < kTileSteps; ++k) {
+    if constexpr (kZero) {
+      // zero padding (plain mode only): no clamp, a tap outside weighs 0
+      const ZeroTaps z =
+          zero_taps(__fadd_rn((float)row, fy[k]),
+                    __fadd_rn((float)(j0 + 32 * k), fx[k]), rows, W);
+      w00[k] = z.w00;
+      w01[k] = z.w01;
+      w10[k] = z.w10;
+      w11[k] = z.w11;
+      o00[k] = z.y0 * x2 + z.x0 * x3;
+      dy[k] = (z.y1 - z.y0) * x2;
+      dx[k] = (z.x1 - z.x0) * x3;
+      continue;
+    }
     const Taps t = taps_of(fx[k], fy[k], row, j0 + 32 * k, rows, W);
     const float wy0 = __fsub_rn(1.0f, t.wy);
     const float wx0 = __fsub_rn(1.0f, t.wx);
@@ -206,14 +229,15 @@ __global__ void __launch_bounds__(32 * kTileRows)
   }
 }
 
-template <typename TI, typename TF, int C, bool kStrided, bool kWindow>
+template <typename TI, typename TF, int C, bool kStrided, bool kWindow,
+          bool kZero>
 int run(const int64_t* a, int band, int band_valid, Strides4 fs, Strides4 xs,
         Strides4 os, Window win, cudaStream_t stream) {
   const int n = (int)a[3], c = (int)a[4], H = (int)a[5], W = (int)a[6];
   constexpr int kTileW = 32 * kTileSteps;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileRows - 1) / kTileRows,
                   n);
-  warp_planes_kernel<TI, TF, C, kStrided, kWindow>
+  warp_planes_kernel<TI, TF, C, kStrided, kWindow, kZero>
       <<<grid, dim3(32, kTileRows), 0, stream>>>(
           arg_ptr<const TI>(a, 0), arg_ptr<const TF>(a, 1), arg_ptr<TI>(a, 2),
           c, H, W, band, band_valid, fs, xs, os, win);
@@ -222,16 +246,17 @@ int run(const int64_t* a, int band, int band_valid, Strides4 fs, Strides4 xs,
 
 // RGB (every path) takes the kernel with the channels unrolled; any other
 // count loops over them
-template <typename TI, typename TF, bool kStrided, bool kWindow = false>
+template <typename TI, typename TF, bool kStrided, bool kWindow = false,
+          bool kZero = false>
 int run_any_c(const int64_t* a, int band, int band_valid, Strides4 fs,
               Strides4 xs, Strides4 os, cudaStream_t stream,
               Window win = Window{}) {
   if (a[3] * a[4] * a[5] * a[6] == 0) return 0;
   return a[4] == 3
-             ? run<TI, TF, 3, kStrided, kWindow>(a, band, band_valid, fs, xs,
-                                                 os, win, stream)
-             : run<TI, TF, 0, kStrided, kWindow>(a, band, band_valid, fs, xs,
-                                                 os, win, stream);
+             ? run<TI, TF, 3, kStrided, kWindow, kZero>(
+                   a, band, band_valid, fs, xs, os, win, stream)
+             : run<TI, TF, 0, kStrided, kWindow, kZero>(
+                   a, band, band_valid, fs, xs, os, win, stream);
 }
 
 // K1: (planes, flow, out, n, c, H, W, band, band_valid, flow strides,
@@ -263,6 +288,81 @@ int launch_rgb(const int64_t* a) {
                                  arg_ptr<CUstream_st>(a, 19));
 }
 
+// K1's zero padding on a channels_last image of c = 8 k channels, the
+// layout of BasicVSR++'s feature maps: one thread per pixel and 8
+// neighbouring channels, the channel groups of a pixel on neighbouring
+// threads, so each tap is one 16-byte load and the output one 16-byte
+// store, a warp's stores covering 512 (bf16) neighbouring bytes. K1's row
+// tiles (kZero above) put a warp's lanes on 32 columns and loop over the
+// channels one at a time, which on this layout issues a 2-byte load per
+// lane 2 c bytes apart for every channel and tap: 40x its bound at
+// (4, 64, 180, 320). The stencil and the sums are K1's (zero_taps, the
+// same order), so both are the one plain version bit for bit.
+constexpr int kNhwcBlock = 256;
+
+template <typename TI>
+__global__ void __launch_bounds__(kNhwcBlock)
+    warp_zero_nhwc_kernel(const TI* __restrict__ x,
+                          const float* __restrict__ flow, TI* __restrict__ out,
+                          int n, int c, int H, int W, Strides4 xs,
+                          Strides4 os, Strides4 fs) {
+  const int groups = c / 8;
+  const int t = blockIdx.x * kNhwcBlock + threadIdx.x;
+  if (t >= n * H * W * groups) return;
+  const int g = t % groups;
+  const int p = t / groups;
+  const int j = p % W;
+  const int q = p / W;
+  const int i = q % H;
+  const int b = q / H;
+  const float* f = flow + b * fs.s0 + i * fs.s1 + j * fs.s2;
+  const ZeroTaps z = zero_taps(__fadd_rn((float)i, f[fs.s3]),
+                               __fadd_rn((float)j, f[0]), H, W);
+  const TI* xb = x + b * xs.s0 + 8 * g;
+  float v[4][8];
+  load8(xb + (z.y0 * xs.s2 + z.x0 * xs.s3), v[0]);
+  load8(xb + (z.y0 * xs.s2 + z.x1 * xs.s3), v[1]);
+  load8(xb + (z.y1 * xs.s2 + z.x0 * xs.s3), v[2]);
+  load8(xb + (z.y1 * xs.s2 + z.x1 * xs.s3), v[3]);
+  float r[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float top = __fadd_rn(__fmul_rn(z.w00, v[0][k]),
+                                __fmul_rn(z.w01, v[1][k]));
+    const float bot = __fadd_rn(__fmul_rn(z.w10, v[2][k]),
+                                __fmul_rn(z.w11, v[3][k]));
+    r[k] = __fadd_rn(top, bot);
+  }
+  store8(out + b * os.s0 + i * os.s2 + j * os.s3 + 8 * g, r);
+}
+
+// K1 with zero padding, on K2's strides: (x, flow, out, n, c, H, W, the
+// image's, the output's and the flow's strides, stream)
+template <typename TI, typename TF>
+int launch_zero(const int64_t* a) {
+  const Strides4 xs = strides_from(a + 7), os = strides_from(a + 11),
+                 fs = strides_from(a + 15);
+  return run_any_c<TI, TF, true, false, true>(a, 0, 0, fs, xs, os,
+                                              arg_ptr<CUstream_st>(a, 19));
+}
+
+// K1's zero padding on channels_last vectors: K2's arguments, the image
+// and the output channels_last with c, their strides and their addresses
+// multiples of 8 elements (16 bytes), the flow fp32
+template <typename TI>
+int launch_zero_nhwc(const int64_t* a) {
+  const int n = (int)a[3], c = (int)a[4], H = (int)a[5], W = (int)a[6];
+  const int total = n * H * W * (c / 8);
+  if (total == 0) return 0;
+  warp_zero_nhwc_kernel<TI>
+      <<<(total + kNhwcBlock - 1) / kNhwcBlock, kNhwcBlock, 0,
+         arg_ptr<CUstream_st>(a, 19)>>>(
+          arg_ptr<const TI>(a, 0), arg_ptr<const float>(a, 1),
+          arg_ptr<TI>(a, 2), n, c, H, W, strides_from(a + 7),
+          strides_from(a + 11), strides_from(a + 15));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points, one per (image dtype, flow dtype) and kernel, each
@@ -279,7 +379,10 @@ int launch_rgb(const int64_t* a) {
 // flow's in (n, H, W, 2) order, stream). Flow strides are in elements, so an
 // (n, H, W, 2) tensor and the (n, H, W, 2) view of an NCHW (n, 2, H, W)
 // tensor both work without a copy. The wrappers check the grid limits and
-// the 32-bit offsets. Each returns cudaGetLastError() after the launch.
+// the 32-bit offsets. K1 with zero padding, tecogan_warp_zero_*: K2's
+// arguments; out-of-image taps read 0 (BasicVSR++'s feature and flow
+// warps); tecogan_warp_zero_nhwc_*: the same on channels_last vectors of 8
+// channels. Each returns cudaGetLastError() after the launch.
 #define TECOGAN_WARP_ENTRY(NAME, TI, TF) \
   extern "C" int NAME(const int64_t* args) { \
     return launch_planes<TI, TF>(args);      \
@@ -290,6 +393,8 @@ int launch_rgb(const int64_t* a) {
   }
 #define TECOGAN_WARP_RGB_ENTRY(NAME, TI, TF) \
   extern "C" int NAME(const int64_t* args) { return launch_rgb<TI, TF>(args); }
+#define TECOGAN_WARP_ZERO_ENTRY(NAME, TI, TF) \
+  extern "C" int NAME(const int64_t* args) { return launch_zero<TI, TF>(args); }
 
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_f32_f32, float, float)
 TECOGAN_WARP_ENTRY(tecogan_warp_planes_f32_bf16, float, __nv_bfloat16)
@@ -305,3 +410,11 @@ TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_f32_bf16, float, __nv_bfloat16)
 TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_bf16_f32, __nv_bfloat16, float)
 TECOGAN_WARP_RGB_ENTRY(tecogan_warp_rgb_bf16_bf16, __nv_bfloat16,
                        __nv_bfloat16)
+TECOGAN_WARP_ZERO_ENTRY(tecogan_warp_zero_f32_f32, float, float)
+TECOGAN_WARP_ZERO_ENTRY(tecogan_warp_zero_bf16_f32, __nv_bfloat16, float)
+extern "C" int tecogan_warp_zero_nhwc_f32(const int64_t* args) {
+  return launch_zero_nhwc<float>(args);
+}
+extern "C" int tecogan_warp_zero_nhwc_bf16(const int64_t* args) {
+  return launch_zero_nhwc<__nv_bfloat16>(args);
+}

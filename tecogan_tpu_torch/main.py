@@ -311,7 +311,7 @@ def profile(opt, lr_size: str, test_speed: bool = False) -> dict:
     timed on the host clock up to a synchronise. The generator's weights
     are drawn from a seed and its compute dtype is the configuration's.
     Returns the numbers it prints."""
-    from .models.networks import define_generator
+    from .models.networks import FRNetConfig, define_generator
     from .models.networks.frnet import _compute_module
 
     print_options(opt["model"]["generator"])
@@ -323,6 +323,10 @@ def profile(opt, lr_size: str, test_speed: bool = False) -> dict:
 
     device = nn.select_device(opt)
     cfg, build = define_generator(opt)
+    if not isinstance(cfg, FRNetConfig):
+        raise ValueError(f"profile mode profiles FRNet's streaming step; "
+                         f"generator {opt['model']['generator']['name']} "
+                         f"has none")
     net = _compute_module(build(torch.Generator().manual_seed(0), device),
                           cfg.dtype)
 

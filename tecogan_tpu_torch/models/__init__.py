@@ -6,7 +6,7 @@ from .vsrgan_model import VSRGANModel
 
 def define_model(opt):
     name = opt["model"]["name"].lower()
-    if name == "frvsr":
+    if name in ("frvsr", "basicvsrpp"):
         return VSRModel(opt)
     if name == "tecogan":
         return VSRGANModel(opt)

@@ -17,7 +17,9 @@ from ..utils import ckpt as ckpt_io
 from .base import BaseVSRModel, inference_numerics
 from .convert import jax_from_state_dict
 from ..parallel import dist
-from .networks import define_generator, infer_sequence, infer_sequence_sp
+from .networks import (BasicVSRPPConfig, define_generator, infer_clip_batch,
+                       infer_sequence, infer_sequence_sp)
+from .networks.basicvsrpp import read_state_dict
 from .schedules import make_adam
 from .steps import frvsr_init_state, frvsr_train_step, make_train_config
 
@@ -25,9 +27,18 @@ _log = logging.getLogger(__name__)
 
 
 class VSRModel(BaseVSRModel):
+    """FRVSR's trainer and inferencer; in test mode also the inferencer of
+    BasicVSR++ (generator ``BasicVSRPP``), which cannot be trained here
+    yet."""
+
     def __init__(self, opt, device: torch.device | None = None):
         super().__init__(opt, device)
         self.cfg_g, build = define_generator(opt)
+        self.whole_clip = isinstance(self.cfg_g, BasicVSRPPConfig)
+        if self.whole_clip and self.is_train:
+            raise NotImplementedError(
+                "training BasicVSR++ (generator BasicVSRPP) is not supported "
+                "yet: its DCN has no backward; use --mode test")
         gen = torch.Generator().manual_seed(opt.get("manual_seed", 2021))
         self.net_g = build(gen, self.device)
         if not self.is_train:
@@ -54,8 +65,11 @@ class VSRModel(BaseVSRModel):
     def load_generator(self, load_path: str):
         """Swap in another generator checkpoint (``.npz`` or ``.pth``);
         keys or shapes that do not match the configured net raise."""
-        sd = ckpt_io.load_generator_params(load_path, self.cfg_g.nb,
-                                           self.cfg_g.scale)
+        if self.whole_clip:
+            sd = self.net_g.port_state_dict(read_state_dict(load_path))
+        else:
+            sd = ckpt_io.load_generator_params(load_path, self.cfg_g.nb,
+                                               self.cfg_g.scale)
         self.net_g.load_state_dict(sd, strict=True)
         _log.info("Load generator from: %s", load_path)
 
@@ -100,12 +114,16 @@ class VSRModel(BaseVSRModel):
         (`vsr_model.py:97-113`). A float32 generator runs with TF32 off and
         cuDNN's deterministic algorithms (``inference_numerics``). Under
         ``test.spatial_partition`` the rows are sharded (``sp_devices``).
+        BasicVSR++ runs the (padded) sequence whole
+        (``infer_clip_batch``).
         """
         lr = torch.as_tensor(lr_data, device=self.device)
         lr, n_pad = self.pad_sequence(lr)
-        devices = self.sp_devices(lr.shape[1])
+        devices = None if self.whole_clip else self.sp_devices(lr.shape[1])
         with inference_numerics(self.cfg_g.compute_dtype):
-            if devices is not None:
+            if self.whole_clip:
+                hr = infer_clip_batch(self.net_g, lr[None], self.cfg_g)[0]
+            elif devices is not None:
                 hr = infer_sequence_sp(self.net_g, lr, self.cfg_g, devices,
                                        chunk)
             else:

@@ -34,9 +34,10 @@ __all__ = [
 
 
 def kernel_launches() -> dict:
-    """The warp kernels' launch counts in this process (K1 includes its
-    band-mode launches, K3 those fused with K4)."""
-    from . import warp_cuda, warp_phases, warp_vjp
+    """The kernels' launch counts in this process (K1 includes its
+    band-mode launches, K3 those fused with K4): the warps, then K1's
+    zero-padding instantiation and the DCN's column gather."""
+    from . import dcn, warp_cuda, warp_phases, warp_vjp
 
     return {"K1": warp_cuda.warp_planes.launches,
             "K1 band": warp_cuda.warp_planes.band_launches,
@@ -45,16 +46,19 @@ def kernel_launches() -> dict:
             "K3": warp_vjp.warp_dimage.launches,
             "K3+K4": warp_vjp.warp_dimage.dflow_launches,
             "K4": warp_vjp.warp_dflow.launches,
-            "K5": warp_phases.warp_phases.launches}
+            "K5": warp_phases.warp_phases.launches,
+            "K1 zero": warp_cuda.warp_zero.launches,
+            "DCN": dcn.dcn_columns.launches}
 
 
 def reset_kernel_launches() -> None:
     """Set every count ``kernel_launches`` reads to 0."""
-    from . import warp_cuda, warp_phases, warp_vjp
+    from . import dcn, warp_cuda, warp_phases, warp_vjp
 
     for fn in (warp_cuda.warp_planes, warp_cuda.warp_planes_window,
                warp_cuda.warp_rgb, warp_vjp.warp_dimage, warp_vjp.warp_dflow,
-               warp_phases.warp_phases):
+               warp_phases.warp_phases, warp_cuda.warp_zero,
+               dcn.dcn_columns):
         fn.launches = 0
     warp_cuda.warp_planes.band_launches = 0
     warp_vjp.warp_dimage.dflow_launches = 0

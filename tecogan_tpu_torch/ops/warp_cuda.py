@@ -47,7 +47,8 @@ from torch._subclasses.fake_tensor import is_fake
 
 __all__ = ["OPS", "stride_grid", "tile_pixels", "tile_plan", "warp_planes",
            "warp_planes_reference", "warp_planes_window",
-           "warp_planes_window_reference", "warp_rgb"]
+           "warp_planes_window_reference", "warp_rgb", "warp_zero",
+           "warp_zero_reference", "zero_taps"]
 
 # the port's operators (K1 here, K5 in warp_phases.py)
 OPS = torch.library.Library("tecogan_torch", "DEF")
@@ -518,7 +519,96 @@ def warp_rgb(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def zero_taps(sy: torch.Tensor, sx: torch.Tensor, h: int, w: int):
+    """The zero-padded bilinear stencil of fp32 sample points (sy, sx) of
+    an h x w image, as ``csrc/warp_common.cuh::zero_taps`` computes it:
+    the coordinate floored with no clamp, the four weights (1-wx)(1-wy),
+    wx(1-wy), (1-wx)wy, wx*wy, each 0 where its tap lies outside the
+    image, and the int64 tap indices (y0, x0, y1, x1) clamped into it.
+    Returns (y0, x0, y1, x1, w00, w01, w10, w11)."""
+    y0f = torch.floor(sy)
+    x0f = torch.floor(sx)
+    wy = sy - y0f
+    wx = sx - x0f
+    wy0 = 1.0 - wy
+    wx0 = 1.0 - wx
+    ry0 = (y0f >= 0) & (y0f <= h - 1)
+    ry1 = (y0f >= -1) & (y0f <= h - 2)
+    rx0 = (x0f >= 0) & (x0f <= w - 1)
+    rx1 = (x0f >= -1) & (x0f <= w - 2)
+    w00 = torch.where(ry0 & rx0, wx0 * wy0, 0.0)
+    w01 = torch.where(ry0 & rx1, wx * wy0, 0.0)
+    w10 = torch.where(ry1 & rx0, wx0 * wy, 0.0)
+    w11 = torch.where(ry1 & rx1, wx * wy, 0.0)
+    y0 = torch.clamp(y0f, -1.0, float(h)).long()
+    x0 = torch.clamp(x0f, -1.0, float(w)).long()
+    return (y0.clamp(0, h - 1), x0.clamp(0, w - 1), (y0 + 1).clamp(0, h - 1),
+            (x0 + 1).clamp(0, w - 1), w00, w01, w10, w11)
+
+
+def warp_zero_reference(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1's zero padding (``warp_zero``): x (n, c,
+    H, W), any strides, sampled at (i + fy, j + fx) along flow (n, H, W,
+    2), taps outside the image reading 0; fp32 arithmetic in the kernel's
+    order, the output in x's dtype and memory format."""
+    n, c, h, w = x.shape
+    f = flow.float()
+    ii = torch.arange(h, dtype=torch.float32, device=x.device)[:, None]
+    jj = torch.arange(w, dtype=torch.float32, device=x.device)[None, :]
+    y0, x0, y1, x1, w00, w01, w10, w11 = zero_taps(ii + f[..., 1],
+                                                   jj + f[..., 0], h, w)
+    xf = x.float()
+    top = (w00[:, None] * gather_tap(xf, y0, x0)
+           + w01[:, None] * gather_tap(xf, y0, x1))
+    bot = (w10[:, None] * gather_tap(xf, y1, x0)
+           + w11[:, None] * gather_tap(xf, y1, x1))
+    out = torch.empty_like(x)
+    out.copy_(top + bot)
+    return out
+
+
+def warp_zero(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp x, logically (n, c, H, W), along flow (n, H, W, 2) with zero
+    padding: pixel (i, j) samples at (i + fy, j + fx) and taps outside the
+    image read 0 (``F.grid_sample(padding_mode="zeros",
+    align_corners=True)``, BasicVSR++'s ``flow_warp``).
+
+    CPU tensors: ``warp_zero_reference``. CUDA tensors, launched on the
+    current stream with an fp32 flow of any strides and no copy (the
+    output is ``torch.empty_like(x)``): a channels_last image of 8 k
+    channels takes the channel-vector kernel (``_nhwc_vectors``), any other
+    image K1's kernel body in its zero-padding instantiation on K2's
+    strides; both round as the plain version. ``warp_zero.launches``
+    counts kernel launches.
+    """
+    if all_on_cpu(x, flow):
+        return warp_zero_reference(x, flow)
+    index = check_cuda_warp_args("warp_zero", x, flow)
+    if flow.dtype != torch.float32:
+        raise TypeError(f"warp_zero takes an fp32 flow, got {flow.dtype}")
+    out = torch.empty_like(x)
+    xs, os_, fs = x.stride(), out.stride(), flow.stride()
+    _rgb_plan(x.shape, xs, os_, fs)
+    n, c, h, w = x.shape
+    kind = "zero_nhwc" if _nhwc_vectors(x, out) else "zero"
+    tag = _DTYPE_TAG[x.dtype] + ("" if kind == "zero_nhwc" else "_f32")
+    launch(f"tecogan_warp_{kind}_{tag}", index, x.data_ptr(),
+           flow.data_ptr(), out.data_ptr(), n, c, h, w, *xs, *os_, *fs)
+    warp_zero.launches += 1
+    return out
+
+
+def _nhwc_vectors(*tensors: torch.Tensor) -> bool:
+    """Whether each (n, c, H, W) tensor is channels_last with its channels,
+    strides and address in whole 16-byte vectors of 8 elements (bf16 or
+    fp32), as ``tecogan_warp_zero_nhwc_*`` takes them."""
+    return all(t.stride(1) == 1 and t.shape[1] % 8 == 0
+               and all(t.stride(d) % 8 == 0 for d in (0, 2, 3))
+               and t.data_ptr() % 16 == 0 for t in tensors)
+
+
 warp_planes.launches = 0
 warp_planes.band_launches = 0
+warp_zero.launches = 0
 warp_planes_window.launches = 0
 warp_rgb.launches = 0

@@ -296,18 +296,20 @@ def test_failed_cli_raises_with_its_log(tmp_path):
 def test_kernel_launch_counts_reset():
     """``reset_kernel_launches`` zeroes every count the CLI logs."""
     from tecogan_tpu_torch import ops
-    from tecogan_tpu_torch.ops import warp_cuda, warp_phases, warp_vjp
+    from tecogan_tpu_torch.ops import dcn, warp_cuda, warp_phases, warp_vjp
 
     for fn in (warp_cuda.warp_planes, warp_cuda.warp_planes_window,
                warp_cuda.warp_rgb, warp_vjp.warp_dimage, warp_vjp.warp_dflow,
-               warp_phases.warp_phases):
+               warp_phases.warp_phases, warp_cuda.warp_zero,
+               dcn.dcn_columns):
         fn.launches += 3
     warp_cuda.warp_planes.band_launches += 2
     warp_vjp.warp_dimage.dflow_launches += 1
     assert all(ops.kernel_launches().values())
     ops.reset_kernel_launches()
     assert ops.kernel_launches() == dict.fromkeys(
-        ("K1", "K1 band", "K1 window", "K2", "K3", "K3+K4", "K4", "K5"), 0)
+        ("K1", "K1 band", "K1 window", "K2", "K3", "K3+K4", "K4", "K5",
+         "K1 zero", "DCN"), 0)
 
 
 def test_imports_without_jax_cv2_yaml_and_needs_a_card(tmp_path):
