@@ -1172,7 +1172,7 @@ def phase_slice(ckpt, rng):
          .astype(np.uint8)},
     ]
     n_pad = model.opt["test"]["num_pad_front"]
-    expected = 0
+    expected = epilogues = 0
     reset_kernel_launches()
     for i, data in enumerate(requests):
         torch.cuda.synchronize()
@@ -1182,17 +1182,21 @@ def phase_slice(ckpt, rng):
         dt = time.perf_counter() - t0
         t = lr.shape[0]
         expected += _frames_warped(t + n_pad, 16)
+        epilogues += frvsr_epilogues(t + n_pad, 16)
         print(f"request {i} ({'gt' if 'gt' in data else 'lr'}): "
               f"{tuple(out.shape)} {out.dtype} in {dt:.3f} s (host clock, "
               f"first request includes warm-up)")
         _require(out.dtype == np.uint8 and out.shape == (t, 536, 1280, 3),
                  f"request {i}: {out.dtype} {out.shape}")
     counts = kernel_launches()
-    print(f"launches in the main path: {counts}, frames warped: {expected}")
-    _require(counts == {**dict.fromkeys(counts, 0), "K1": expected},
-             "the main path did not launch K1 (not in band mode), and only "
-             "K1, once per warped frame")
-    return model, counts["K1"]
+    print(f"launches in the main path: {counts}, frames warped: {expected}, "
+          f"bf16 convolutions: {epilogues}")
+    _require(counts == {**dict.fromkeys(counts, 0), "K1": expected,
+                        "Epilogue": epilogues},
+             "the main path did not launch K1 (not in band mode) once per "
+             "warped frame and the epilogue once per convolution, and "
+             "nothing else")
+    return model, counts["K1"], counts["Epilogue"]
 
 
 # --------------------------------------------------------------- test mode
@@ -1570,7 +1574,8 @@ def phase_test_mode(card):
                            for r in records)
             print(f"test mode {label}: launches {counts}, frames warped "
                   f"{expected}")
-            # (c) K1 once per warped frame, and no other warp kernel
+            # (c) K1 once per warped frame, and no other kernel (fp32: no
+            # epilogue)
             _require(counts == {**dict.fromkeys(counts, 0), "K1": expected},
                      f"test mode {label}: K1 not launched once per warped "
                      f"frame, or another kernel launched")
@@ -1730,9 +1735,10 @@ def phase_p16(model, card, rng):
     torch.cuda.synchronize()
     counts = kernel_launches()
     print(f"packed16 path launches (64 frames warped): {counts}")
-    _require(counts == {**dict.fromkeys(counts, 0), "K5": 64},
-             "the packed16 path did not launch K5, and only K5, once per "
-             "warped frame")
+    _require(counts == {**dict.fromkeys(counts, 0), "K5": 64,
+                        "Epilogue": frvsr_epilogues(64, 64)},
+             "the packed16 path did not launch K5 once per warped frame and "
+             "the epilogue once per convolution, and nothing else")
     _require(got.shape == (1, 64, 536, 1280, 3) and got.dtype == torch.uint8,
              f"packed16 output {got.dtype} {tuple(got.shape)}")
     ref = infer_sequence_batch(model.net_g, lr, model.cfg_g, chunk=64)
@@ -1785,10 +1791,12 @@ def phase_fold(model, card, rng):
     counts = kernel_launches()
     print(f"fold_streams path launches ({FOLD_STREAMS} streams x 64 "
           f"frames): {counts}")
+    # the row-masked SRNet keeps PyTorch's ops: FNet's epilogues alone
     _require(counts == {**dict.fromkeys(counts, 0), "K1": 64,
-                        "K1 band": 64},
-             "the fold path did not launch band-mode K1, and only it, once "
-             "per frame")
+                        "K1 band": 64,
+                        "Epilogue": frvsr_epilogues(64, 64, srnet=False)},
+             "the fold path did not launch band-mode K1 once per frame and "
+             "the epilogue once per FNet convolution, and nothing else")
     _require(got.shape == (FOLD_STREAMS, 64, 536, 1280, 3)
              and got.dtype == torch.uint8,
              f"fold output {got.dtype} {tuple(got.shape)}")
@@ -3866,12 +3874,13 @@ def phase_serving(card, params):
     """Phase 15: three artifacts of the flagship generator (bf16, fp32, bf16
     packed16; 1 x 64 frames of 134x320, chunk 16) exported by
     tools/export_serving.py and loaded by serving.load_artifact: each
-    bit-identical to the live path, K1 (K5) once per warped frame and no
-    other kernel; serve.main on PNG sequences (plain, with pre-roll, with a
-    --ckpt override; a too-long sequence refused), every PNG equal to the
-    live frames; the loaded bf16 program's FPS against the live path in
-    turns, a profile of each, and K1's operator cost. Returns the K1 and K5
-    launches of the loaded programs and of serve."""
+    bit-identical to the live path, K1 (K5) once per warped frame, the
+    epilogue once per bf16 convolution and no other kernel; serve.main on
+    PNG sequences (plain, with pre-roll, with a --ckpt override; a too-long
+    sequence refused), every PNG equal to the live frames; the loaded bf16
+    program's FPS against the live path in turns, a profile of each, and
+    K1's operator cost. Returns the K1, K5 and epilogue launches of the
+    loaded programs and of serve."""
     import torch
 
     from tecogan_tpu_torch import serve, serving
@@ -3885,7 +3894,7 @@ def phase_serving(card, params):
     h, w = SERVE_LR
     sd = state_dict_from_jax(params)
     x = torch.from_numpy(_smooth_frames(rng, SERVE_T, h, w))[None].cuda()
-    launches = {"K1": 0, "K5": 0}
+    launches = {"K1": 0, "K5": 0, "Epilogue": 0}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = f"{tmp}/G.npz"
         save_pytree(params, ckpt)
@@ -3913,11 +3922,18 @@ def phase_serving(card, params):
             first_s = time.perf_counter() - t0
             counts = kernel_launches()
             kernel = "K5" if extra else "K1"
-            _require(counts == {**dict.fromkeys(counts, 0), kernel: SERVE_T},
+            # a bf16 program holds the epilogue after every convolution, as
+            # the live path runs it
+            epilogues = (frvsr_epilogues(SERVE_T, SERVE_CHUNK)
+                         if dtype == "bfloat16" else 0)
+            _require(counts == {**dict.fromkeys(counts, 0), kernel: SERVE_T,
+                                "Epilogue": epilogues},
                      f"{label} artifact: launches {counts}, expected "
-                     f"{kernel} once per warped frame ({SERVE_T}) and no "
-                     f"other kernel")
+                     f"{kernel} once per warped frame ({SERVE_T}), the "
+                     f"epilogue once per bf16 convolution ({epilogues}) and "
+                     f"no other kernel")
             launches[kernel] += counts[kernel]
+            launches["Epilogue"] += counts["Epilogue"]
             want = _live(sd, cfg, x)
             _require(got.shape == (1, SERVE_T, 4 * h, 4 * w, 3)
                      and torch.equal(got, want),
@@ -3956,9 +3972,12 @@ def phase_serving(card, params):
             counts = kernel_launches()
             _require(written == {k: SERVE_SEQ_T for k in seqs}
                      and counts == {**dict.fromkeys(counts, 0),
-                                    "K1": SERVE_ART_T * len(seqs)},
+                                    "K1": SERVE_ART_T * len(seqs),
+                                    "Epilogue": len(seqs) * frvsr_epilogues(
+                                        SERVE_ART_T, SERVE_CHUNK)},
                      f"serve ({label}): wrote {written}, launches {counts}")
             launches["K1"] += counts["K1"]
+            launches["Epilogue"] += counts["Epilogue"]
             pad = SERVE_PAD if "pad_front" in label else 0
             for name, frames in seqs.items():
                 lr = frames.astype(np.float32) / 255.0
@@ -4435,11 +4454,17 @@ def phase_sp(card, params):
                 got = infer_sequence_sp(net, lr, cfg, [dev] * k, SP_CHUNK)
                 torch.cuda.synchronize()
                 counts = kernel_launches()
+                # bf16: each shard's FNet and SRNet launch the epilogue
+                # once per convolution
+                epilogues = (k * frvsr_epilogues(SP_FRAMES, SP_CHUNK)
+                             if dtype == "bfloat16" else 0)
                 _require(counts == {**dict.fromkeys(counts, 0),
-                                    "K1 window": SP_FRAMES * k},
+                                    "K1 window": SP_FRAMES * k,
+                                    "Epilogue": epilogues},
                          f"sharded inference (k={k}, {dtype}): launches "
                          f"{counts}, expected K1 window once per shard and "
-                         f"frame and no other kernel")
+                         f"frame, the epilogue {epilogues} times and no other "
+                         f"kernel")
                 launches += counts["K1 window"]
                 mx, frac = _uint8_diff(got, ref)
                 psnr = _psnr_u8(got, ref)
@@ -5122,8 +5147,10 @@ def phase_campaign(card, params):
     _require(got.shape == want.shape and torch.equal(got, want),
              f"infer_streams on [0, 0] differs from infer_sequence_batch: "
              f"{_uint8_diff(got, want)}")
-    # K1 warps a block's streams together: once per block and frame
-    _require(counts == {**dict.fromkeys(counts, 0), "K1": 2 * t},
+    # K1 warps a block's streams together: once per block and frame; each
+    # block runs its own FNet and SRNet
+    _require(counts == {**dict.fromkeys(counts, 0), "K1": 2 * t,
+                        "Epilogue": 2 * frvsr_epilogues(t, 16)},
              f"infer_streams launches {counts}, expected K1 {2 * t}")
     print(f"infer_streams on [0, 0], {n} x {t} frames of {h}x{w} bf16: "
           f"bit-identical to infer_sequence_batch, K1 {counts['K1']} "
@@ -5342,7 +5369,8 @@ def phase_basicvsrpp(card):
         after = ops.kernel_launches()
         d = (got.int() - want.int()).abs().float()
         worst = float(d.mean(dim=(2, 3, 4)).max())
-        counts = {k: after[k] - before[k] for k in ("K1", "K1 zero", "DCN")}
+        counts = {k: after[k] - before[k]
+                  for k in ("K1", "K1 zero", "DCN", "Epilogue")}
         print(f"BasicVSR++ {dt} (2 clips x 8 frames of 64x96, 64 channels, "
               f"7 blocks) against the reference: worst frame's mean "
               f"{worst:.4g} gray levels, max {float(d.max()):.0f}; "
@@ -5352,13 +5380,188 @@ def phase_basicvsrpp(card):
         # the DCN once per aligned step of each branch; K1 zero 1 + 3 a
         # step after the second; K1 at SPyNet's 6 levels, both directions,
         # one pass per chunk of 4 pairs
+        # the epilogue once per bf16 convolution, none in fp32
         _require(counts["DCN"] == 4 * (t - 1)
                  and counts["K1 zero"] == 4 * (1 + 3 * (t - 2))
-                 and counts["K1"] == 2 * 6 * -(-(t - 1) // 4),
+                 and counts["K1"] == 2 * 6 * -(-(t - 1) // 4)
+                 and counts["Epilogue"] == (
+                     basicvsrpp_epilogues(t, 4, cfg.num_blocks)
+                     if dt == "bfloat16" else 0),
                  f"BasicVSR++ launches {counts}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     return launches
+
+
+# the convolutions' epilogue at its paths' shapes: (label, bf16 (n, C, H,
+# W), activation (0 none, 1 ReLU, 2 LeakyReLU), slope, residual form)
+EPILOGUE_CASES = (
+    ("SRNet conv_in / block conv + ReLU", (4, 64, 134, 320), 1, 0.0, None),
+    ("SRNet block conv + skip", (4, 64, 134, 320), 0, 0.0, "nhwc"),
+    ("SRNet 4x ConvTranspose + ReLU", (4, 64, 536, 1280), 1, 0.0, None),
+    ("(4,64,536,1280) + NHWC residual", (4, 64, 536, 1280), 0, 0.0, "nhwc"),
+    ("conv_offset's last conv", (4, 432, 180, 320), 0, 0.0, None),
+    ("SRNet conv_out + HR residual", (4, 3, 536, 1280), 0, 0.0, "nchw"),
+    ("FNet encoder1 + LeakyReLU 0.2", (4, 32, 134, 320), 2, 0.2, None),
+    ("BasicVSR++ input conv + LeakyReLU 0.1", (4, 64, 180, 320), 2, 0.1,
+     None),
+)
+EPILOGUE_TIMED = (4, 64, 536, 1280)  # the row of PERF.md's kernel table
+# the inference cells whose frames are compared with the parent's
+INFER_CELLS = ("frvsr_4x_bd.infer_s4", "basicvsrpp_4x_reds.infer_reds4")
+
+
+def frvsr_epilogues(t: int, chunk: int, nb: int = NB,
+                    srnet: bool = True) -> int:
+    """The epilogue launches of one bf16 FRVSR call on the card over t
+    frames in chunks of at most ``chunk``: FNet's 14 convolutions once per
+    chunk, SRNet's 2 nb + 4 once per frame of the balanced chunks, every one
+    with a bias. ``srnet`` False: the row-masked fold route, whose SRNet
+    keeps PyTorch's ops."""
+    n_chunks = -(-t // chunk)
+    srnet_convs = 2 * nb + 4 if srnet else 0
+    return 14 * n_chunks + srnet_convs * _frames_warped(t, chunk)
+
+
+def basicvsrpp_epilogues(t: int, chunk: int, num_blocks: int) -> int:
+    """The epilogue launches of one bf16 BasicVSR++ call on the card over t
+    frames: per chunk of frames, the spatial features' 11 convolutions (an
+    input conv and 5 blocks) and the reconstruction's 15 (11, two
+    upsampling convs, conv_hr, conv_last); per chunk of frame pairs,
+    SPyNet's 30 in each direction; in each of the 4 branches, the
+    backbone's 2 num_blocks + 1 per frame and conv_offset's 4 per aligned
+    step."""
+    chunks, pair_chunks = -(-t // chunk), -(-(t - 1) // chunk)
+    return ((11 + 15) * chunks + 60 * pair_chunks
+            + 4 * (t * (2 * num_blocks + 1) + 4 * (t - 1)))
+
+
+def cell_launches(cell: dict) -> dict:
+    """The kernel launches of one call of an inference cell
+    (``INFER_CELLS``), from the structure: FRVSR's K1 once per frame of
+    the balanced chunks; BasicVSR++'s K1 at SPyNet's 6 levels in both
+    directions once per chunk of pairs, K1 zero 1 + 3 a step after the
+    second and the DCN once per aligned step, in each of 4 branches; the
+    epilogue once per convolution."""
+    mix, g = cell["mix"], cell["config_data"]["generator"]
+    t, c = mix["frames"], mix["chunk"]
+    if "nf" in g:
+        return {"K1": _frames_warped(t, c),
+                "Epilogue": frvsr_epilogues(t, c, g["nb"])}
+    return {"K1": 2 * 6 * -(-(t - 1) // c), "K1 zero": 4 * (1 + 3 * (t - 2)),
+            "DCN": 4 * (t - 1),
+            "Epilogue": basicvsrpp_epilogues(t, c, g["num_blocks"])}
+
+
+def cell_frames_sha256(seed: int, device=None) -> dict:
+    """The sha256 of the uint8 frames of one call of each inference cell
+    (``INFER_CELLS``) on the first batch of the benchmark's driver built
+    from ``seed``, with the kernel launches of that call (counted from 0),
+    as {cell: (digest, launches)}. It runs the ``tecogan_tpu_torch`` and
+    ``vsrbench`` that the working directory holds, so the same function
+    reads a parent's checkout from its root."""
+    import hashlib
+
+    import torch
+
+    from tecogan_tpu_torch import ops
+    from vsrbench import harness
+
+    device = device or torch.device("cuda", 0)
+    bench = harness.load_json("BENCHMARK.json")
+    out = {}
+    for name in INFER_CELLS:
+        cell = harness.find_cell(bench, name)
+        drv = harness.driver(cell["mix"]["driver"]).Driver(
+            cell["config_data"], cell["mix"], seed, device)
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        frames = drv._call(drv.pool[0])
+        torch.cuda.synchronize()
+        launches = ops.kernel_launches()
+        digest = hashlib.sha256(frames.cpu().numpy().tobytes()).hexdigest()
+        out[name] = (digest, launches)
+        print(f"{name} seed {seed}: frames {tuple(frames.shape)} sha256 "
+              f"{digest}; launches {launches}", flush=True)
+        del drv, frames
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_epilogue(card):
+    """The convolutions' epilogue (``csrc/conv_epilogue.cu``) against its
+    plain version and PyTorch's unfused chain (the bias-free output's
+    broadcast bias add, the activation module, the residual as the left
+    operand), bit for bit and layout for layout on the card at the paths'
+    shapes, each timed beside its byte bound, its plain version and that
+    chain; then the frames of one seeded call of each inference cell
+    (``cell_frames_sha256``) with its launches against the structure's
+    (``cell_launches``). Returns the timed shape's numbers."""
+    import torch
+    from torch import nn
+
+    from tecogan_tpu_torch.ops import conv_epilogue as ep
+    from vsrbench import harness
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    cl = torch.channels_last
+    timed = None
+    for label, shape, act, slope, form in EPILOGUE_CASES:
+        y = (3 * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16, memory_format=cl)
+        bias = torch.randn(shape[1], generator=gen, device=dev).bfloat16()
+        res = None
+        if form is not None:
+            res = torch.randn(shape, generator=gen, device=dev).bfloat16()
+            if form == "nhwc":
+                res = res.contiguous(memory_format=cl)
+        module = {0: None, 1: nn.ReLU(), 2: nn.LeakyReLU(slope)}[act]
+
+        def kern():
+            return ep.conv_epilogue(y, bias, res, act, slope)
+
+        def plain():
+            return ep.conv_epilogue_reference(y, bias, res, act, slope)
+
+        def chain():
+            t = y + bias.view(1, -1, 1, 1)
+            t = t if module is None else module(t)
+            return t if res is None else res + t
+
+        got = kern()
+        torch.cuda.synchronize()
+        for other, what in ((plain(), "its plain version"),
+                            (chain(), "PyTorch's unfused chain")):
+            err = float((got.float() - other.float()).abs().max())
+            _require(torch.equal(got, other)
+                     and got.stride() == other.stride(),
+                     f"epilogue {label} {shape}: differs from {what}: max "
+                     f"abs err {err}")
+        print(f"epilogue {label} {shape}: bit-identical to its plain version "
+              f"and to PyTorch's unfused chain")
+        nbytes = 2 * y.numel() * (2 if res is None else 3) + 2 * shape[1]
+        t = _time_kernel(f"epilogue {label} {shape}", card, kern, plain,
+                         chain, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+        share = (None if t["device_ms"] is None
+                 else t["bound_ms"] / t["device_ms"])
+        print(f"  share of the byte bound ({nbytes / 1e6:.1f} MB): "
+              f"{'not measured' if share is None else f'{100 * share:.1f}%'}"
+              f"; the unfused chain's device time is "
+              f"{_us(t['library_device_ms'])}")
+        if shape == EPILOGUE_TIMED and form is None:
+            timed = dict(t, max_abs_err=0.0)
+        del y, bias, res, got
+    torch.cuda.empty_cache()
+
+    bench = harness.load_json("BENCHMARK.json")
+    for name, (_, counts) in cell_frames_sha256(SEED + 17, dev).items():
+        want = cell_launches(harness.find_cell(bench, name))
+        _require(counts == {**dict.fromkeys(counts, 0), **want},
+                 f"{name}: launches {counts} in one call, the structure's "
+                 f"{want}")
+        print(f"{name}: one call's launches as the structure says: {want}")
+    return timed
 
 
 def main() -> int:
@@ -5392,13 +5595,14 @@ def main() -> int:
              "K5": phase_k5(card), "K1 window": phase_k1_window(card)}
     times.update(phase_dcn(card))
     bvpp_launches = phase_basicvsrpp(card)
+    times["Epilogue"] = phase_epilogue(card)
 
     rng = np.random.default_rng(SEED)
     params = _jax_layout_params(rng, NF, NB, SCALE)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "G_random.npz")
         save_pytree(params, ckpt)
-        model, k1_launches = phase_slice(ckpt, rng)
+        model, k1_launches, epilogue_launches = phase_slice(ckpt, rng)
     phase_test_mode(card)
     phase_profile(model, card)
     launches = {"K1": k1_launches, "K5": phase_p16(model, card, rng),
@@ -5410,6 +5614,7 @@ def main() -> int:
     launches["K1"] += bvpp_launches["K1"]
     launches["K1 zero"] = bvpp_launches["K1 zero"]
     launches["DCN"] = bvpp_launches["DCN"]
+    launches["Epilogue"] = epilogue_launches + bvpp_launches["Epilogue"]
 
     times.update(phase_k234(card))
     phase_assembly_warps(card)
@@ -5462,7 +5667,10 @@ def main() -> int:
             ("K1 zero", "warp_zero", "tecogan_tpu_torch/csrc/warp_planes.cu",
              "none (BasicVSR++'s flow_warp)"),
             ("DCN", "dcn_columns", "tecogan_tpu_torch/csrc/dcn.cu",
-             "none (mmcv's modulated_deform_conv2d)")):
+             "none (mmcv's modulated_deform_conv2d)"),
+            ("Epilogue", "conv_epilogue",
+             "tecogan_tpu_torch/csrc/conv_epilogue.cu",
+             "none (XLA fuses a convolution's epilogue on the TPU)")):
         t = times[key]
         _require(launches[key] > 0, f"{name} was not launched on its path")
         rows.append({"name": name, "route": "cuda", "source": source,

@@ -33,7 +33,10 @@ sampling coordinates (flows, their sums, the DCN's offsets) are computed
 and held in fp32, and the output frame is summed in fp32 before it is
 quantised. In bf16 the activations and convolution weights are
 channels_last (``nn.LayoutFollowsDtype``), as FNet's and SRNet's are;
-in fp32 NCHW. The feature and flow warps take zero padding (K1's
+in fp32 NCHW. Each convolution with its activation or its residual
+block's skip is one ``nn.conv_act``: in bf16 inference on a card the bias,
+the activation and the skip are one kernel after cuDNN
+(``ops.conv_epilogue``). The feature and flow warps take zero padding (K1's
 zero-padding instantiation, ``ops/warp_cuda.py::warp_zero``); SPyNet's
 own warps take K1 with border padding, as FRNet's do.
 
@@ -58,8 +61,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn import (LayoutFollowsDtype, cat_channels, conv_format,
-                   init_torch_default)
+from ...nn import (LayoutFollowsDtype, cat_channels, conv_act, conv_format,
+                   init_torch_default, run_fused)
 from ...ops.color import quantize_uint8
 from ...ops.dcn import modulated_deform_conv
 from ...ops.warp_cuda import warp_planes, warp_zero
@@ -76,6 +79,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
 _SPYNET_LEVELS = 6
+_RELU = nn.ReLU()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +110,7 @@ class _ConvModule(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        x = self.conv(x)
-        return F.relu(x) if self.relu else x
+        return conv_act(self.conv, x, _RELU if self.relu else None)
 
 
 class SPyNetBasicModule(nn.Module):
@@ -192,7 +195,7 @@ class ResidualBlocksWithInputConv(nn.Module):
             nn.Sequential(*[ResidualBlock(m) for _ in range(blocks)]))
 
     def forward(self, x):
-        return self.main(x)
+        return run_fused(self.main, x)
 
 
 class SecondOrderDeformableAlignment(nn.Conv2d):
@@ -223,14 +226,16 @@ def _pixel_shuffle(x: torch.Tensor, s: int) -> torch.Tensor:
 
 
 class PixelShufflePack(nn.Module):
-    """A 3x3 conv m -> 4 m, then a 2x pixel shuffle."""
+    """A 3x3 conv m -> 4 m and ``act`` where given (``nn.conv_act``), then
+    a 2x pixel shuffle: the activation acts on each value alone, so it
+    commutes with the shuffle bit for bit."""
 
     def __init__(self, m: int):
         super().__init__()
         self.upsample_conv = _conv(m, 4 * m)
 
-    def forward(self, x):
-        return _pixel_shuffle(self.upsample_conv(x), 2)
+    def forward(self, x, act: nn.Module | None = None):
+        return _pixel_shuffle(conv_act(self.upsample_conv, x, act), 2)
 
 
 def _nhwc(flow: torch.Tensor) -> torch.Tensor:
@@ -329,7 +334,7 @@ class BasicVSRPP(LayoutFollowsDtype):
                 f2 = f1 + warp_zero(g, _nhwc(f1))
                 c2 = warp_zero(p2, _nhwc(f2))
             mod = self.deform_align[name]
-            raw = mod.conv_offset(cat_channels(
+            raw = run_fused(mod.conv_offset, cat_channels(
                 [c1, spatial, c2, f1.to(dt), f2.to(dt)], fmt))
             with tracing.span("infer.dcn"):
                 out = modulated_deform_conv(
@@ -373,9 +378,10 @@ class BasicVSRPP(LayoutFollowsDtype):
         fmt = conv_format(feats[0].dtype)
         with tracing.span("infer.reconstruct"):
             hr = self.reconstruction(cat_channels(feats, fmt))
-            hr = self.lrelu(self.upsample1(hr))
-            hr = self.lrelu(self.upsample2(hr))
-            hr = self.conv_last(self.lrelu(self.conv_hr(hr)))
+            hr = self.upsample1(hr, self.lrelu)
+            hr = self.upsample2(hr, self.lrelu)
+            hr = conv_act(self.conv_last,
+                          conv_act(self.conv_hr, hr, self.lrelu))
             base = F.interpolate(lr, scale_factor=4, mode="bilinear",
                                  align_corners=False)
             return quantize_uint8(hr.float() + base)

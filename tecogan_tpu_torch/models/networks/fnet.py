@@ -11,7 +11,8 @@ In bf16 the activations between the input's cat and the flow head are
 channels_last, as a bf16 FNet's convolution weights are
 (``nn.LayoutFollowsDtype``), and the decoders' upsample runs on the NHWC
 memory; in fp32 everything is NCHW. Either way the flow leaves contiguous
-NCHW.
+NCHW. Each convolution and its LeakyReLU are one ``nn.conv_act`` (one
+kernel after cuDNN in bf16 inference on a card).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...nn import LayoutFollowsDtype, cat_channels, network_layout
+from ...nn import (LayoutFollowsDtype, cat_channels, network_layout,
+                   run_fused)
 from ...ops.resize import upsample_bilinear, upsample_nhwc
 
 _ENC = [32, 64, 128]
@@ -53,11 +55,13 @@ class FNet(LayoutFollowsDtype):
         h' = (h // 8) * 8 (the max-pools floor odd sizes)."""
         fmt = network_layout(x_cur)
         out = cat_channels([x_cur, x_prev], fmt)
-        out = self.encoder3(self.encoder2(self.encoder1(out)))
+        for enc in (self.encoder1, self.encoder2, self.encoder3):
+            out = run_fused(enc, out)
         for dec in (self.decoder1, self.decoder2, self.decoder3):
-            out = dec(out)
+            out = run_fused(dec, out)
             if fmt == torch.channels_last:
                 out = upsample_nhwc(out, "bilinear_half_pixel", 2)
             else:
                 out = upsample_bilinear(out, 2)
-        return torch.tanh(self.flow(out).contiguous()) * _MAX_VELOCITY
+        flow = run_fused(self.flow, out).contiguous()
+        return torch.tanh(flow) * _MAX_VELOCITY

@@ -17,6 +17,11 @@ In bf16 the activations from conv_in's input to conv_out's output are
 channels_last, as a bf16 SRNet's convolution weights are
 (``nn.LayoutFollowsDtype``); in fp32 everything is NCHW. The global
 residual is NCHW in both, and the HR frame leaves contiguous NCHW.
+
+Each convolution with its ReLU, its block's skip or the global residual is
+one ``nn.conv_act``: in bf16 inference on a card the bias, the ReLU and the
+residual are one kernel after cuDNN (``ops.conv_epilogue``), elsewhere the
+modules' own ops.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...nn import LayoutFollowsDtype, cat_channels, network_layout
+from ...nn import (LayoutFollowsDtype, cat_channels, conv_act,
+                   network_layout, run_fused)
 from ...ops.resize import (_device_matrix, apply_separable,
                            get_upsampling_fn, upsample_mode)
 from ...ops.spatial import space_to_depth
@@ -40,7 +46,8 @@ class ResidualBlock(nn.Module):
         self.conv = nn.Sequential(_conv(nf, nf), nn.ReLU(), _conv(nf, nf))
 
     def forward(self, x):
-        return x + self.conv(x)
+        conv0, relu, conv1 = self.conv
+        return conv_act(conv1, conv_act(conv0, x, relu), residual=x)
 
 
 class SRNet(LayoutFollowsDtype):
@@ -85,10 +92,12 @@ class SRNet(LayoutFollowsDtype):
         """
         out = cat_channels([lr_curr, hr_packed], network_layout(lr_curr))
         if row_masks is None:
-            out = self.conv_up(self.resblocks(self.conv_in(out)))
+            out = run_fused(self.conv_up,
+                            self.resblocks(run_fused(self.conv_in, out)))
             # the NCHW residual first: the sum takes its layout, so the HR
             # frame leaves contiguous NCHW with no copy of its own
-            return self.upsample(lr_curr) + self.conv_out(out)
+            return conv_act(self.conv_out, out,
+                            residual=self.upsample(lr_curr))
         m_lr = row_masks["lr"]
         out = self.conv_in(out) * m_lr
         for block in self.resblocks:

@@ -14,11 +14,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .ops.conv_epilogue import (ACT_LEAKY_RELU, ACT_NONE, ACT_RELU,
+                                conv_epilogue)
 from .parallel import dist
 from .utils import tracing
 
 __all__ = ["cast_params", "conv_format", "network_layout", "cat_channels",
-           "LayoutFollowsDtype", "batch_norm", "no_tf32",
+           "fused_epilogue", "conv_act", "run_fused", "LayoutFollowsDtype",
+           "batch_norm", "no_tf32",
            "inference_numerics", "training_numerics", "F64ForwardConv2d",
            "conv2d_f64_forward", "init_torch_default", "select_device",
            "select_devices"]
@@ -72,6 +75,72 @@ def cat_channels(tensors, memory_format: torch.memory_format
         return torch.cat([t.permute(0, 2, 3, 1) for t in tensors],
                          3).permute(0, 3, 1, 2)
     return torch.cat(tensors, 1)
+
+
+def fused_epilogue(weight: torch.Tensor) -> bool:
+    """Whether a convolution with ``weight`` takes the fused epilogue
+    (``conv_act``): the weight is a bf16 channels_last CUDA tensor (as
+    ``LayoutFollowsDtype`` and ``cast_params(..., conv_format(dtype))``
+    keep a bf16 network's) and autograd is off (inference mode or
+    ``no_grad``). The weight decides, not the input, so a program traced
+    through fake tensors (``serving.export_stream``) takes the route the
+    live path takes. fp32, the CPU and every forward that records a graph
+    (training) keep PyTorch's own ops."""
+    return (weight.is_cuda and weight.dtype == torch.bfloat16
+            and not torch.is_grad_enabled()
+            and weight.is_contiguous(memory_format=torch.channels_last))
+
+
+def conv_act(conv: nn.Module, x: torch.Tensor, act: nn.Module | None = None,
+             residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``residual + act(conv(x))``, each part where given, for an
+    ``nn.Conv2d`` or ``nn.ConvTranspose2d`` and an ``nn.ReLU`` or
+    ``nn.LeakyReLU``; any other activation raises TypeError.
+
+    Where ``fused_epilogue(conv.weight)`` holds and the convolution has a
+    bias, the convolution runs without it and one kernel adds the bias,
+    applies the activation and adds the residual (``ops.conv_epilogue``),
+    with the roundings of the unfused bf16 chain, so the result is the same
+    to the bit. Otherwise the modules are called as they are, the residual
+    added last as the left operand: exactly PyTorch's unfused ops.
+    """
+    if act is not None and not isinstance(act, (nn.ReLU, nn.LeakyReLU)):
+        raise TypeError(f"conv_act takes nn.ReLU or nn.LeakyReLU, got "
+                        f"{type(act).__name__}")
+    bias = conv.bias
+    if bias is None or not fused_epilogue(conv.weight):
+        y = conv(x) if act is None else act(conv(x))
+        return y if residual is None else residual + y
+    if isinstance(conv, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(x, conv.weight, None, conv.stride,
+                               conv.padding, conv.output_padding,
+                               conv.groups, conv.dilation)
+    else:
+        y = conv._conv_forward(x, conv.weight, None)
+    if isinstance(act, nn.LeakyReLU):
+        return conv_epilogue(y, bias, residual, ACT_LEAKY_RELU,
+                             act.negative_slope)
+    return conv_epilogue(y, bias, residual,
+                         ACT_NONE if act is None else ACT_RELU)
+
+
+def run_fused(seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """``seq(x)``, each convolution followed by a ReLU or LeakyReLU run as
+    one ``conv_act`` (every other convolution alone through it too); the
+    other modules are called as they are."""
+    mods = list(seq)
+    i = 0
+    while i < len(mods):
+        m = mods[i]
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            act = mods[i + 1] if i + 1 < len(mods) and isinstance(
+                mods[i + 1], (nn.ReLU, nn.LeakyReLU)) else None
+            x = conv_act(m, x, act)
+            i += 1 if act is None else 2
+        else:
+            x = m(x)
+            i += 1
+    return x
 
 
 def _to_conv_format(t: torch.Tensor) -> torch.Tensor:

@@ -36,8 +36,9 @@ __all__ = [
 def kernel_launches() -> dict:
     """The kernels' launch counts in this process (K1 includes its
     band-mode launches, K3 those fused with K4): the warps, then K1's
-    zero-padding instantiation and the DCN's column gather."""
-    from . import dcn, warp_cuda, warp_phases, warp_vjp
+    zero-padding instantiation, the DCN's column gather and the bf16
+    inference convolutions' epilogue."""
+    from . import conv_epilogue, dcn, warp_cuda, warp_phases, warp_vjp
 
     return {"K1": warp_cuda.warp_planes.launches,
             "K1 band": warp_cuda.warp_planes.band_launches,
@@ -48,17 +49,18 @@ def kernel_launches() -> dict:
             "K4": warp_vjp.warp_dflow.launches,
             "K5": warp_phases.warp_phases.launches,
             "K1 zero": warp_cuda.warp_zero.launches,
-            "DCN": dcn.dcn_columns.launches}
+            "DCN": dcn.dcn_columns.launches,
+            "Epilogue": conv_epilogue.conv_epilogue.launches}
 
 
 def reset_kernel_launches() -> None:
     """Set every count ``kernel_launches`` reads to 0."""
-    from . import dcn, warp_cuda, warp_phases, warp_vjp
+    from . import conv_epilogue, dcn, warp_cuda, warp_phases, warp_vjp
 
     for fn in (warp_cuda.warp_planes, warp_cuda.warp_planes_window,
                warp_cuda.warp_rgb, warp_vjp.warp_dimage, warp_vjp.warp_dflow,
                warp_phases.warp_phases, warp_cuda.warp_zero,
-               dcn.dcn_columns):
+               dcn.dcn_columns, conv_epilogue.conv_epilogue):
         fn.launches = 0
     warp_cuda.warp_planes.band_launches = 0
     warp_vjp.warp_dimage.dflow_launches = 0

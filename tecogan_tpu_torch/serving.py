@@ -120,7 +120,10 @@ def export_stream(params, cfg, n: int, t: int, h: int, w: int,
     ``params`` (the port's state dict) fixes only the names, shapes and
     dtypes of the weights: the serving process passes its own at call
     time. ``platforms``: the one target platform (``resolve_platform``).
-    Exporting for ``cuda`` needs a CUDA device here.
+    Exporting for ``cuda`` needs a CUDA device here. The trace runs with
+    autograd off, so a bf16 program for ``cuda`` calls the operator
+    ``tecogan_torch::conv_epilogue`` after each convolution, as the live
+    path does.
     """
     platform = resolve_platform(platforms)
     if platform == "cuda" and not torch.cuda.is_available():
@@ -132,7 +135,11 @@ def export_stream(params, cfg, n: int, t: int, h: int, w: int,
     device = torch.device(platform)
     sd = {k: torch.as_tensor(v).to(device) for k, v in params.items()}
     lr = torch.zeros((n, t, h, w, 3), dtype=torch.float32, device=device)
-    ep = torch.export.export(_Program(cfg, chunk), (sd, lr), strict=False)
+    # traced without autograd, as the program runs: a bf16 program for cuda
+    # then holds the convolutions' epilogue (``nn.conv_act``)
+    with torch.no_grad():
+        ep = torch.export.export(_Program(cfg, chunk), (sd, lr),
+                                 strict=False)
     ep.example_inputs = None  # the zeros and weights need no place in the file
     info = {"compute_dtype": cfg.compute_dtype, "platform": platform,
             "keys": list(sd)}

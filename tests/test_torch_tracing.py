@@ -233,7 +233,7 @@ def test_loader_counts_epoch_starts_and_the_batches_it_built(dataset):
 
 def test_kernel_launches_keep_their_keys_and_counts_under_spans():
     keys = ["K1", "K1 band", "K1 window", "K2", "K3", "K3+K4", "K4", "K5",
-            "K1 zero", "DCN"]
+            "K1 zero", "DCN", "Epilogue"]
     before = ops.kernel_launches()
     assert list(before) == keys
     _profiled(_stream(5, 2))
